@@ -1,0 +1,8 @@
+"""Entry point for ``python -m repro_torch`` (see :mod:`repro_torch.api.cli`)."""
+
+import sys
+
+from repro_torch.api.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

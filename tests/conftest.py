@@ -20,6 +20,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "filterwarnings",
         "error:os\\.fork\\(\\) was called:RuntimeWarning")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA GPU; skips with a reason where there is none")
 
 
 def small_graph():
