@@ -6,19 +6,31 @@ and the CUDA toolkit::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``src/repro_torch/csrc/``, holds it
-bit for bit against its plain torch version on the card, reproduces the
-JAX package's golden artifacts with the ``torch`` executor on the card,
-and runs the planner at the paper's co-exploration settings on the real
-ResNet-50 netlist through the CLI entry point, requiring the result to be
-byte-equal to the ``vector`` backend's.  Each phase prints one JSON line;
-the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
-raises and the script exits non-zero without that line.  Without a CUDA
-GPU, or outside a checkout of the repository, it exits 2.
+It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
+``nvcc`` each, all at once) and drives both paths of the port:
+
+* the planner: the streaming-block kernel bit for bit against its plain
+  torch version, the JAX package's golden artifacts reproduced with the
+  ``torch`` executor on the card, and the planner at the paper's
+  co-exploration settings on the real ResNet-50 netlist through the CLI
+  entry point, byte-equal to the ``vector`` backend's result;
+* LM serving: the RMSNorm, fused SwiGLU and flash-attention kernels against
+  their plain versions in bf16 and fp32 at the serving shapes and at ragged
+  ones, ``python -m repro_torch.launch.serve`` at the full width of
+  tinyllama-1.1b in bf16 with each kernel's launches held to the count the
+  model's structure implies, and an fp32 forward and greedy decode on the
+  card against the same on the CPU.
+
+Each phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
+exits non-zero without that line.  Without a CUDA GPU, or outside a
+checkout of the repository, it exits 2.  ``--only PHASE,...`` runs a subset
+(for development; the full run takes no arguments).
 """
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import os
@@ -64,6 +76,31 @@ LANE_OPS = 20
 
 KERNEL_SOURCE = "src/repro_torch/csrc/finish_batch.cu"
 KERNEL_REPLACES = "src/repro/kernels/finish_batch.py:95"
+
+# the LM kernels: library name -> (entry in the kernels line, the TPU kernel
+# it replaces, the names of its device kernels in a profiler trace)
+LM_KERNELS = {
+    "rmsnorm": ("rmsnorm", "src/repro/kernels/rmsnorm.py:13",
+                ("rmsnorm_kernel",)),
+    "fused_ffn": ("fused_swiglu", "src/repro/kernels/fused_ffn.py:31",
+                  ("ffn_kernel", "ffn_reduce_kernel")),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:38",
+                        ("attn_kernel",)),
+}
+# H100 SXM dense bf16 tensor-core rate, NVIDIA's data sheet
+PEAK_BF16_OPS_PER_S = 989e12
+# tests/test_kernels.py's tolerances, by dtype
+LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# kernel-against-plain shapes: the serving path's (8 x 512 and 4 x 200
+# prefill, batch-8 decode) at tinyllama-1.1b's width, and ragged ones
+RMS_CASES = ((4096, 2048), (800, 2048), (8, 2048), (4095, 2048), (3, 200))
+FFN_CASES = ((4096, 2048, 5632), (800, 2048, 5632), (8, 2048, 5632),
+             (77, 200, 300))
+# (B, H, Hkv, S, d, causal, window)
+ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
+              (2, 4, 4, 130, 32, True, 48), (1, 2, 2, 100, 128, False, 0),
+              (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0))
 
 
 def emit(obj) -> None:
@@ -128,14 +165,23 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """One ``nvcc`` per source, all started together; ptxas's register,
+    shared-memory and spill lines for each kernel."""
     from repro_torch.kernels import _build
 
+    names = ["finish_batch", *LM_KERNELS]
     t0 = time.perf_counter()
-    path = _build.build("finish_batch")
-    _build.load("finish_batch")
-    emit({"phase": "build", "kernel": "finish_batch",
-          "library": str(path.relative_to(ROOT)),
-          "seconds": time.perf_counter() - t0})
+    paths = _build.build_all(names)
+    for name in names:
+        _build.load(name)
+    emit({"phase": "build", "kernels": names,
+          "libraries": [str(paths[n].relative_to(ROOT)) for n in names],
+          "seconds": time.perf_counter() - t0,
+          "ptxas": {n: [line.split("ptxas info    : ")[-1].strip()
+                        for line in _build.ptxas_report(n).splitlines()
+                        if "Used" in line or "spill" in line
+                        or "Compiling" in line]
+                    for n in names}})
 
 
 def phase_kernel_vs_plain() -> float:
@@ -203,10 +249,11 @@ def phase_golden() -> None:
                 f"golden {case}: {launches} launches for {batches} batches")
 
 
-def _device_activity(prof) -> dict:
+def _device_activity(prof, kernel_names=("finish_batch_kernel",)) -> dict:
     """What ran on the card in a ``torch.profiler`` trace: the union of
     the intervals of every device event (kernels and copies), so that
-    overlapping events count once, and the events of each kind."""
+    overlapping events count once, and the events of each kind (the
+    port's kernels: names containing one of ``kernel_names``)."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -216,7 +263,7 @@ def _device_activity(prof) -> dict:
         if end > covered_to:
             busy_us += end - max(start, covered_to)
             covered_to = end
-    kernel = [e for e in events if "finish_batch_kernel" in e.name]
+    kernel = [e for e in events if any(n in e.name for n in kernel_names)]
     copies = [e for e in events if "Memcpy" in e.name]
     return {
         "device_events": len(events),
@@ -365,7 +412,411 @@ def phase_timing(n: int) -> dict:
     return out
 
 
-def main() -> int:
+# -- LM serving ---------------------------------------------------------------
+
+# python -m repro_torch.launch.serve at tinyllama-1.1b's full width (22
+# layers, d 2048, 32 heads / 4 KV heads, d_ff 5632, vocab 32000; bf16
+# compute, random weights from the seed): 8 requests of 512 tokens, then
+# 4 of 200 (a length no tile divides), 32 new tokens each
+SERVE_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b",
+              "--new-tokens", "32", "--max-batch", "8", "--seed", "0")
+SERVE_RUNS = (("--requests", "8", "--prompt-len", "512"),
+              ("--requests", "4", "--prompt-len", "200"))
+# launches the model's structure implies (tinyllama: 22 attention + dense
+# FFN layers): per forward, 2 norms a layer + the final norm and one FFN a
+# layer; per prefill, one attention a layer (decode attends over the cache
+# in plain torch)
+N_LAYERS = 22
+# serve_vs_cpu: logits of the fp32 forward on the card (kernels) and on
+# the CPU (plain versions).  Both are fp32; they differ in summation order
+# over depths up to 5,632 through 22 layers, O(1e-5) on logits of unit
+# scale, so 1e-3 absolute + 1e-3 relative separates that from any fault
+SERVE_VS_CPU_TOL = 1e-3
+
+
+def _lm_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import rmsnorm as rn
+
+    return {"rmsnorm": rn, "fused_ffn": ff, "flash_attention": fa}
+
+
+def _serve_once(extra) -> tuple:
+    """One ``repro_torch.launch.serve.main`` call; its requests' tokens
+    and its ``group:`` lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main([*SERVE_ARGS, *extra])
+    if rc != 0:
+        raise AssertionError(f"serve {extra} exited {rc}")
+    tokens, groups = {}, []
+    for line in buf.getvalue().splitlines():
+        if line.startswith("req "):
+            rid, toks = line[4:].split(": ", 1)
+            tokens[int(rid)] = json.loads(toks)
+        elif line.startswith("group: "):
+            groups.append(json.loads(line[len("group: "):]))
+    n = int(extra[1])
+    if sorted(tokens) != list(range(n)) or any(
+            len(t) != 32 or not all(0 <= x < 32000 for x in t)
+            for t in tokens.values()):
+        raise AssertionError(f"serve {extra}: not 32 in-vocab tokens for "
+                             f"each of {n} requests")
+    return tokens, groups
+
+
+def _trace_tops(prof, n: int = 12) -> dict:
+    """The device kernels with the most device time and the host ops with
+    the most self time in a ``torch.profiler`` trace: (name, calls,
+    milliseconds) each."""
+    rows = prof.key_averages()
+
+    def ms(evt, *attrs):
+        for a in attrs:
+            if hasattr(evt, a):
+                return getattr(evt, a) / 1e3
+        return 0.0
+
+    dev = sorted(((e.key[:80], e.count, ms(e, "self_device_time_total",
+                                              "self_cuda_time_total"))
+                  for e in rows), key=lambda r: -r[2])
+    host = sorted(((e.key[:80], e.count, ms(e, "self_cpu_time_total"))
+                   for e in rows), key=lambda r: -r[2])
+    return {"top_device_ms": [r for r in dev[:n] if r[2] > 0],
+            "top_host_self_ms": host[:n]}
+
+
+def phase_serve() -> dict:
+    """The serving path at full width through its CLI entry: both runs
+    untraced, with every kernel's launch count set to 0 before and read
+    after and held to the structural count; both again, warm, for their
+    timings; then the 8 x 512 run under ``torch.profiler`` for the card's
+    busy time and the heaviest kernels and host ops, with greedy tokens
+    equal to its first run's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [_serve_once(extra) for extra in SERVE_RUNS]
+    wall = time.perf_counter() - t0
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    groups = [g for _, gs in runs for g in gs]
+    forwards = sum(1 + g["decode_steps"] for g in groups)
+    expected = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
+                "fused_ffn": N_LAYERS * forwards,
+                "flash_attention": N_LAYERS * len(groups)}
+    for g in groups:
+        emit({"phase": "serve", "pass": "first", "group": g})
+    # the same runs again, warm (kernels loaded, allocator primed)
+    for _, gs in (_serve_once(extra) for extra in SERVE_RUNS):
+        for g in gs:
+            emit({"phase": "serve", "pass": "warm", "group": g})
+
+    # the trace covers the main cell (8 x 512) only: its events are what
+    # the profiler can post-process in seconds
+    names = [n for lib in LM_KERNELS.values() for n in lib[2]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        traced = _serve_once(SERVE_RUNS[0])
+        traced_wall = time.perf_counter() - t1
+    activity = _device_activity(prof, tuple(names))
+    from torch.autograd import DeviceType
+
+    by_kernel = {lib: 0 for lib in LM_KERNELS}  # by each launch's first kernel
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for lib, (_, _, knames) in LM_KERNELS.items():
+                by_kernel[lib] += knames[0] in e.name
+    for g in traced[1]:
+        emit({"phase": "serve", "pass": "traced", "group": g})
+    same_tokens = runs[0][0] == traced[0]
+    out = {
+        "phase": "serve", "args": list(SERVE_ARGS),
+        "runs": [list(r) for r in SERVE_RUNS],
+        "wall_s": wall, "forwards": forwards,
+        "launches": launches, "expected_launches": expected,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "traced_run": list(SERVE_RUNS[0]), "traced_wall_s": traced_wall,
+        "traced_launches": by_kernel,
+        **activity,
+        "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3
+                              / traced_wall if activity["device_events"]
+                              else None),
+        "tokens_equal_traced_untraced": same_tokens,
+        **_trace_tops(prof),
+    }
+    emit(out)
+    if launches != expected:
+        raise AssertionError(f"serve launches {launches} != structural "
+                             f"{expected}")
+    if not same_tokens:
+        raise AssertionError("the traced serve run gave other tokens")
+    return out
+
+
+def phase_serve_vs_cpu() -> dict:
+    """A 64-token prompt at full tinyllama-1.1b width in fp32 compute, on
+    the card through the kernels and on the CPU through their plain
+    versions, with the same weights: the uncached forward's logits within
+    :data:`SERVE_VS_CPU_TOL`, and 8 greedy tokens of the serving engine
+    equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_apply, lm_init, param_values
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("tinyllama-1.1b").with_(compute_dtype="float32")
+    values = param_values(lm_init(cfg, torch.Generator().manual_seed(0),
+                                  "cpu"))
+    on_card = tree_map(lambda t: t.to("cuda"), values)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 64)
+    tokens = torch.from_numpy(prompt[None, :].astype(np.int64))
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    got = lm_apply(on_card, cfg, tokens.cuda())[0].cpu()
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    want = lm_apply(values, cfg, tokens)[0]
+    err = float((got - want).abs().max())
+    close = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=SERVE_VS_CPU_TOL, atol=SERVE_VS_CPU_TOL)
+
+    def greedy(vals):
+        eng = ServeEngine(cfg, vals, ServeConfig(max_batch=1, max_len=80))
+        return eng.generate([Request(rid=0, prompt=prompt.astype(np.int32),
+                                     max_new_tokens=8)])[0]
+
+    card_tokens, cpu_tokens = greedy(on_card), greedy(values)
+    out = {"phase": "serve_vs_cpu", "compute_dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "logits_shape": list(got.shape), "max_abs_err": err,
+           "max_abs_logit": float(want.abs().max()),
+           "tol": SERVE_VS_CPU_TOL, "close": close,
+           "launches_forward": launches,
+           "card_tokens": card_tokens, "cpu_tokens": cpu_tokens}
+    emit(out)
+    if not close or card_tokens != cpu_tokens:
+        raise AssertionError("the card's fp32 forward disagrees with the "
+                             "CPU's")
+    one_prefill = {"rmsnorm": 2 * N_LAYERS + 1, "fused_ffn": N_LAYERS,
+                   "flash_attention": N_LAYERS}
+    if launches != one_prefill:
+        raise AssertionError(f"the card's forward made {launches} launches, "
+                             f"not {one_prefill}")
+    return out
+
+
+# -- LM kernels ---------------------------------------------------------------
+
+def _randn(shape, dtype, seed, scale=1.0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _rms_inputs(m, d, dtype, seed):
+    return (_randn((m, d), dtype, seed), _randn((d,), dtype, seed + 1))
+
+
+def _ffn_inputs(m, d, f, dtype, seed):
+    return (_randn((m, d), dtype, seed),
+            _randn((d, f), dtype, seed + 1, d ** -0.5),
+            _randn((d, f), dtype, seed + 2, d ** -0.5),
+            _randn((f, d), dtype, seed + 3, f ** -0.5))
+
+
+def _attn_inputs(b, h, hkv, s, d, dtype, seed):
+    """q as the model holds it, ``[B, S, H, d]``, handed over as a
+    ``[B, H, S, d]`` view; k, v likewise with ``Hkv`` heads."""
+    return (_randn((b, s, h, d), dtype, seed).transpose(1, 2),
+            _randn((b, s, hkv, d), dtype, seed + 1).transpose(1, 2),
+            _randn((b, s, hkv, d), dtype, seed + 2).transpose(1, 2))
+
+
+def _lm_calls():
+    """(kernel library, case, kernel call, plain call) for every case of
+    the kernel-against-plain phase, in both dtypes."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import rmsnorm as rn
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (m, d) in enumerate(RMS_CASES):
+            args = _rms_inputs(m, d, dtype, 10 + i)
+            yield ("rmsnorm", {"m": m, "d": d}, dtype,
+                   lambda a=args: rn.fused_rmsnorm(*a),
+                   lambda a=args: rn.rmsnorm_plain(*a))
+        for i, (m, d, f) in enumerate(FFN_CASES):
+            args = _ffn_inputs(m, d, f, dtype, 20 + 4 * i)
+            yield ("fused_ffn", {"m": m, "d": d, "f": f}, dtype,
+                   lambda a=args: ff.fused_swiglu(*a),
+                   lambda a=args: ff.swiglu_plain(*a))
+        for i, (b, h, hkv, s, d, causal, window) in enumerate(ATTN_CASES):
+            args = _attn_inputs(b, h, hkv, s, d, dtype, 40 + 3 * i)
+            kw = {"causal": causal, "window": window}
+            yield ("flash_attention",
+                   {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, **kw}, dtype,
+                   lambda a=args, kw=kw: fa.flash_attention(*a, **kw),
+                   lambda a=args, kw=kw: fa.attention_plain(*a, **kw))
+
+
+def phase_lm_kernels_vs_plain() -> dict:
+    """Each LM kernel against its plain torch version on the same card
+    tensors: at the serving path's shapes and at ragged ones, in bf16
+    (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
+    ``tests/test_kernels.py``.  Returns the largest absolute error of each
+    kernel, by dtype."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "lm_kernels_vs_plain", "allow_tf32": {
+        "matmul": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn": torch.backends.cudnn.allow_tf32}})
+    errs: dict = {}
+    failed = []
+    for name, case, dtype, kernel, plain in _lm_calls():
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        tname = str(dtype).removeprefix("torch.")
+        tol = LM_TOL[tname]
+        finite = bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max())
+        ok = finite and got.shape == want.shape and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol)
+        key = (name, tname)
+        errs[key] = max(errs.get(key, 0.0), err)
+        emit({"phase": "lm_kernels_vs_plain", "kernel": name, **case,
+              "dtype": tname, "tol": tol, "max_abs_err": err,
+              "finite": finite, "ok": ok})
+        if not ok:
+            failed.append((name, case, tname))
+    if failed:
+        raise AssertionError(f"LM kernels disagree with their plain "
+                             f"versions: {failed}")
+    return errs
+
+
+def _profiled_ms(fn, reps: int, names) -> "float | None":
+    """Device time per call of the device kernels whose names contain one
+    of ``names``, from ``torch.profiler``; ``None`` when the profiler shows
+    no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if any(n in evt.key for n in names):
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def _timing_row(lib, shape, kernel, plain, library, nbytes, ops,
+                reps) -> dict:
+    """Times of one kernel at one shape: between CUDA events back to back,
+    device time from the profiler, its plain version and the library call;
+    the bound from the bytes the function must move and its bf16 tensor
+    operations."""
+    ms = _events_ms(kernel, reps)
+    device_ms = _profiled_ms(kernel, reps, LM_KERNELS[lib][2])
+    plain_ms = _events_ms(plain, max(reps // 4, 3))
+    library_ms = _events_ms(library, reps) if library else None
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = ops / PEAK_BF16_OPS_PER_S
+    row = {"phase": "lm_timing", "kernel": lib, **shape, "dtype": "bfloat16",
+           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+           "bytes": nbytes, "ops": ops}
+    emit(row)
+    return row
+
+
+def phase_lm_timing() -> dict:
+    """B2, B3 and B4 at the serving path's shapes in bf16 (prefill of
+    8 x 512 tokens and batch-8 decode at tinyllama-1.1b's width).  The
+    library calls (``F.scaled_dot_product_attention`` with GQA,
+    ``F.rms_norm``) are timed here only; the port never calls them.
+    Returns the prefill row of each kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import rmsnorm as rn
+
+    bf16, rows = torch.bfloat16, {}
+    for m in (4096, 8):
+        x, s = _rms_inputs(m, 2048, bf16, 1)
+        row = _timing_row(
+            "rmsnorm", {"m": m, "d": 2048},
+            lambda: rn.fused_rmsnorm(x, s), lambda: rn.rmsnorm_plain(x, s),
+            lambda: F.rms_norm(x, (2048,), s, 1e-5),
+            nbytes=(2 * m * 2048 + 2048) * 2, ops=0, reps=200)
+        rows.setdefault("rmsnorm", row)
+    for m in (4096, 8):
+        x, wg, wi, wo = _ffn_inputs(m, 2048, 5632, bf16, 2)
+        row = _timing_row(
+            "fused_ffn", {"m": m, "d": 2048, "f": 5632},
+            lambda: ff.fused_swiglu(x, wg, wi, wo),
+            lambda: ff.swiglu_plain(x, wg, wi, wo), None,
+            nbytes=(2 * m * 2048 + 3 * 2048 * 5632) * 2,
+            ops=6 * m * 2048 * 5632, reps=20 if m > 8 else 200)
+        rows.setdefault("fused_ffn", row)
+    b, h, hkv, s_len, d = 8, 32, 4, 512, 64
+    q, k, v = _attn_inputs(b, h, hkv, s_len, d, bf16, 3)
+    live_pairs = b * h * s_len * (s_len + 1) // 2  # causal
+    rows["flash_attention"] = _timing_row(
+        "flash_attention",
+        {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": d, "causal": True},
+        lambda: fa.flash_attention(q, k, v), lambda: fa.attention_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes=(2 * b * h + 2 * b * hkv) * s_len * d * 2,
+        ops=4 * d * live_pairs, reps=100)
+    return rows
+
+
+PHASES = ("kernel_vs_plain", "golden", "full_run", "timing",
+          "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "lm_timing")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=None, metavar="PHASE,...",
+                    help=f"run only these phases after the build, and print "
+                         f"no kernels or ok line (phases: {', '.join(PHASES)})")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else None
+    if only and not only <= set(PHASES):
+        ap.error(f"unknown phase(s): {sorted(only - set(PHASES))}")
     if not (SRC / "repro_torch").is_dir() or not GOLDEN_DIR.is_dir():
         print("error: chip_smoke.py runs from the root of a checkout of the "
               "repository (src/repro_torch and tests/golden are missing)",
@@ -380,22 +831,35 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     os.chdir(ROOT)  # the golden file: workload is a repo-relative path
 
+    def run(name):
+        return only is None or name in only
+
     device = phase_device()
     phase_build()
-    max_err = phase_kernel_vs_plain()
-    phase_golden()
-    full = phase_full_run()
-    main_n = max(1, round(full["mean_batch_lanes"]))
-    timing = phase_timing(main_n)
-    phase_timing(1 << 20)
+    max_err = phase_kernel_vs_plain() if run("kernel_vs_plain") else None
+    if run("golden"):
+        phase_golden()
+    full = phase_full_run() if run("full_run") else None
+    if run("timing"):
+        main_n = max(1, round(full["mean_batch_lanes"])) if full else 185
+        timing = phase_timing(main_n)
+        phase_timing(1 << 20)
+    lm_errs = phase_lm_kernels_vs_plain() if run("lm_kernels_vs_plain") \
+        else None
+    serve = phase_serve() if run("serve") else None
+    if run("serve_vs_cpu"):
+        phase_serve_vs_cpu()
+    lm_rows = phase_lm_timing() if run("lm_timing") else None
+    if only is not None:
+        print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)
+        return 0
 
-    launches = full["kernel_launches"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "finish_batch",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": full["kernel_launches"],
         "bitwise_equal": max_err == 0,
         "max_abs_err": max_err,
         "n": main_n,
@@ -405,7 +869,27 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]})
+    }]
+    for lib, (name, replaces, _) in LM_KERNELS.items():
+        row = lm_rows[lib]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{lib}.cu",
+            "replaces": replaces,
+            "launches": serve["launches"][lib],
+            "max_abs_err": lm_errs[(lib, "bfloat16")],
+            "max_abs_err_fp32": lm_errs[(lib, "float32")],
+            "shape": {k: v for k, v in row.items()
+                      if k in ("m", "d", "f", "b", "h", "hkv", "s")},
+            "ms": row["ms"],
+            "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],
                                  "count": device["count"]}})

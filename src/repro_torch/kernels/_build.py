@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on first
 use into ``build/repro_torch/<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads straight away.  A failed build raises
-with nvcc's stderr; nothing falls back to another implementation.
+checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads straight away.  ptxas's report (registers, shared
+memory, spills per kernel) is kept beside the library as ``<stem>.log``.
+A failed build raises with nvcc's stderr; nothing falls back to another
+implementation.  :func:`build_all` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -15,23 +18,44 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 
 # argtypes/restype of each library's C entry points: pointers and the
 # stream as c_void_p (a plain int would be cut to 32 bits)
 _SIGNATURES = {
     "finish_batch": {
-        "finish_batch_launch": ([ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_longlong, ctypes.c_void_p],
-                                ctypes.c_int),
+        "finish_batch_launch": ([_P, _P, _LL, _P], _I),
+    },
+    "rmsnorm": {
+        # x, scale, out, m, d, eps, x_dtype, scale_dtype, stream
+        "rmsnorm_launch": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
+    },
+    "fused_ffn": {
+        "fused_ffn_splits": ([_I], _I),
+        # x, wg, wi, wo, out, partial, m, d, f, dtype, stream
+        "fused_ffn_launch": ([_P] * 6 + [_LL, _I, _I, _I, _P], _I),
+    },
+    "flash_attention": {
+        "flash_attention_supports": ([_I], _I),
+        # q, k, v, o, B, H, Hkv, S, d, the b/h/s strides of q, k, v and o,
+        # causal, window, scale, dtype, stream
+        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_LL] * 12
+                                   + [_I, _I, _F, _I, _P], _I),
     },
 }
+
+#: dtype codes of the C entry points (``DT_F32``/``DT_BF16`` in
+#: ``csrc/tile_mma.cuh``)
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -56,33 +80,61 @@ def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.is_file():
-        return out
+    return build_all([name])[name]
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, one ``nvcc`` each,
+    all started together; returns each library's path.  Any failed build
+    raises with its stderr once all have finished."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.is_file()}
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
-            f"cannot build the {name} CUDA kernel: nvcc not found "
-            f"(set $CUDA_HOME or put nvcc on PATH)")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: concurrent builders never
-    # load a half-written library
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+            f"cannot build the {', '.join(todo)} CUDA kernel(s): nvcc not "
+            f"found (set $CUDA_HOME or put nvcc on PATH)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        # build under a private name, then rename: concurrent builders
+        # never load a half-written library
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures = []
+    for name, (tmp, cmd, proc) in procs.items():
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed to build {name} (exit "
+                            f"{proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+            continue
+        todo[name].with_suffix(".log").write_text(stderr)
+        os.replace(tmp, todo[name])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said when ``csrc/<name>.cu`` was built (registers, shared
+    memory and spills per kernel); empty if the library was not built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -96,3 +148,24 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib
+
+
+def check_cuda_tensors(name: str, *tensors, contiguous: bool = True) -> None:
+    """Raise ``ValueError`` unless every tensor lies on one CUDA device
+    (and, with ``contiguous``, is contiguous): the kernels take nothing
+    else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} runs on tensors of one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} expects contiguous tensors")
+
+
+def dtype_code(name: str, t) -> int:
+    """The C entry points' code for ``t``'s dtype (fp32 or bf16)."""
+    code = DTYPE_CODES.get(str(t.dtype))
+    if code is None:
+        raise ValueError(f"{name} takes float32 or bfloat16, not {t.dtype}")
+    return code

@@ -1,0 +1,368 @@
+"""Functional layers of the port's model zoo: the attention and dense-FFN
+subset of the JAX package's ``repro.models.layers``.
+
+Every ``*_init`` returns a tree of nested dicts whose leaves are
+:class:`Param` (value + logical axes); ``*_apply`` consumes the matching
+*value* tree.  The logical axes ride along for the sharding port (ROADMAP
+A8); without a mesh the JAX package's ``shard(...)`` is a no-op, so the
+port has none.
+
+RMSNorm, the SwiGLU FFN and, where its contract holds, attention go through
+:mod:`repro_torch.kernels.ops`: the hand-written CUDA kernels on a CUDA
+tensor, their plain torch versions on a CPU tensor.  Which route a call
+takes depends on shapes and flags only, never on the device.
+
+Matrix products promote their operands to a common dtype as the JAX
+package's do (a bf16 activation against an fp32 cache gives fp32), so the
+port follows the reference under any mix of compute and cache dtypes.
+Caches are updated in place (JAX returns new arrays; the port writes the
+same slots of the same tensors and returns the dict).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+class Param:
+    """A parameter leaf: value + logical axes."""
+
+    __slots__ = ("value", "axes")
+
+    def __init__(self, value, axes: Tuple[Optional[str], ...]):
+        self.value = value
+        self.axes = tuple(axes)
+
+    def __repr__(self):
+        return f"Param({tuple(getattr(self.value, 'shape', ()))}, {self.axes})"
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def tree_map(fn: Callable, tree, is_leaf: Callable = is_param):
+    """``fn`` over the leaves of a tree of nested dicts (a leaf is anything
+    that is not a dict, or what ``is_leaf`` accepts)."""
+    if is_leaf(tree) or not isinstance(tree, dict):
+        return fn(tree)
+    return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+
+
+def param_values(tree):
+    return tree_map(lambda p: p.value, tree)
+
+
+def param_axes(tree):
+    return tree_map(lambda p: p.axes, tree)
+
+
+def tree_cast(tree, dtype):
+    """Floating tensors of a value tree to ``dtype`` (others unchanged; a
+    tensor already of ``dtype`` is returned as it is, not copied)."""
+    return tree_map(
+        lambda x: x.to(dtype) if torch.is_floating_point(x) else x, tree)
+
+
+def _init(gen: torch.Generator, shape, axes, scale=None,
+          dtype=torch.float32, device=None) -> Param:
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0])
+    val = torch.randn(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32) * scale
+    return Param(val.to(device=device, dtype=dtype), axes)
+
+
+def _ones(shape, axes, dtype=torch.float32, device=None) -> Param:
+    return Param(torch.ones(shape, dtype=dtype, device=device), axes)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype the two promote to, as jnp does."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": _ones((d,), ("embed",), dtype, device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """Over the last dim of ``x``, through ``ops.rmsnorm`` on ``[-1, d]``;
+    the result has ``x``'s dtype."""
+    d = x.shape[-1]
+    out = ops.rmsnorm(x.reshape(-1, d).contiguous(), params["scale"], eps)
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, dh] (rotates the last dim); positions: [..., S]."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # [dh/2]
+    angles = positions[..., :, None, None].float() * freqs  # [..,S,1,dh/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional sliding window, KV cache)
+# ---------------------------------------------------------------------------
+
+def attention_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    d, h, kh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh, dv = cfg.head_dim, cfg.v_dim
+    p = {
+        "wq": _init(gen, (d, h, dh), ("embed", "heads", "head_dim"),
+                    dtype=dtype, device=device),
+        "wk": _init(gen, (d, kh, dh), ("embed", "kv_heads", "head_dim"),
+                    dtype=dtype, device=device),
+        "wv": _init(gen, (d, kh, dv), ("embed", "kv_heads", "head_dim"),
+                    dtype=dtype, device=device),
+        "wo": _init(gen, (h, dv, d), ("heads", "head_dim", "embed"),
+                    scale=1.0 / math.sqrt(h * dv), dtype=dtype,
+                    device=device),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(dh, dtype, device)
+        p["knorm"] = rmsnorm_init(dh, dtype, device)
+    return p
+
+
+def _attend(q, k, v, mask, softcap: float = 0.0,
+            scale: Optional[float] = None):
+    """Dense path (short sequences / decode steps).
+    q: [B,S,Kh,G,dh]  k: [B,T,Kh,dh]  v: [B,T,Kh,dv]  mask: [B?,S,T]."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+
+
+def _pick_chunk(n: int, target: int, floor: int = 128) -> int:
+    """Largest divisor of n that is <= target (0 if none >= floor)."""
+    c = 0
+    for d in range(1, int(math.isqrt(n)) + 1):
+        if n % d == 0:
+            for cand in (d, n // d):
+                if floor <= cand <= target and cand > c:
+                    c = cand
+    return c
+
+
+def _attend_chunked(q, k, v, qpos, kpos, causal: bool, window: int,
+                    softcap: float, cq: int, ck: int,
+                    scale: Optional[float] = None):
+    """Online-softmax chunked attention, the JAX package's scan over query
+    and key chunks as two Python loops: the S x T score matrix never
+    exists, only B*cq*H*ck of it at a time.
+
+    q: [B,S,Kh,G,dh]  k: [B,T,Kh,dh]  v: [B,T,Kh,dv]
+    qpos: [B,S]  kpos: [T]  ->  [B,S,Kh,G,dv]
+    """
+    B, S, K, G, dh = q.shape
+    T = k.shape[1]
+    dv = v.shape[-1]
+    scale = scale or 1.0 / math.sqrt(dh)
+    nq, nk = S // cq, T // ck
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * cq:(i + 1) * cq].float()
+        qpi = qpos[:, i * cq:(i + 1) * cq]
+        m = torch.full((B, cq, K, G), NEG_INF, device=q.device)
+        l = torch.zeros((B, cq, K, G), device=q.device)
+        acc = torch.zeros((B, cq, K, G, dv), device=q.device)
+        for j in range(nk):
+            kj = k[:, j * ck:(j + 1) * ck].float()
+            vj = v[:, j * ck:(j + 1) * ck].float()
+            kpj = kpos[j * ck:(j + 1) * ck]
+            s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj) * scale
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            mask = (kpj >= 0)[None, None, :].expand(B, cq, ck)
+            if causal:
+                mask = mask & (kpj[None, None, :] <= qpi[:, :, None])
+            if window:
+                mask = mask & (kpj[None, None, :] > qpi[:, :, None] - window)
+            mask = mask[:, :, None, None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgt,btkv->bqkgv", p, vj)
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _dispatch_attend(q, k, v, qpos, kpos, causal, window, softcap,
+                     chunk: int, scale=None):
+    """Choose chunked (long-seq prefill) vs dense attention.
+    ``kpos`` [T] carries absolute key positions (-1 = empty ring slot)."""
+    S, T = q.shape[1], k.shape[1]
+    cq = _pick_chunk(S, chunk) if chunk else 0
+    ck = _pick_chunk(T, max(chunk, 1) * 2) if chunk else 0
+    if cq and ck and S >= chunk and T > ck:
+        return _attend_chunked(q, k, v, qpos, kpos, causal, window, softcap,
+                               cq, ck, scale)
+    kp = kpos[None, :]
+    mask = (kp >= 0)[:, None, :].expand(1, S, T)
+    if causal:
+        mask = mask & (kp[:, None, :] <= qpos[..., None])
+    if window:
+        mask = mask & (kp[:, None, :] > qpos[..., None] - window)
+    return _attend(q, k, v, mask, softcap, scale)
+
+
+def _write_cache(cache: Dict, k, v, positions):
+    """The JAX package's ring-buffer write, in place: S new keys at slot
+    ``len % T`` (clamped so the run fits, as ``dynamic_update_slice``
+    clamps), or the last T of them at slot 0 when S >= T."""
+    T = cache["k"].shape[1]
+    S = k.shape[1]
+    if S >= T:
+        k_w, v_w, pos_w = k[:, -T:], v[:, -T:], positions[0, -T:]
+        start = torch.zeros((), dtype=torch.long, device=k.device)
+    else:
+        k_w, v_w, pos_w = k, v, positions[0]
+        start = torch.clamp(cache["len"].long() % T, max=T - S)
+    idx = start + torch.arange(k_w.shape[1], device=k.device)
+    cache["k"].index_copy_(1, idx, k_w.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v_w.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, idx, pos_w.to(torch.int32))
+    cache["len"].add_(S)
+
+
+def attention_apply(params, cfg: ModelConfig, x, positions,
+                    window: int = 0, cache: Optional[Dict] = None,
+                    kv_source: Optional[torch.Tensor] = None,
+                    fresh: bool = False):
+    """Returns (out, cache).  ``cache``: {"k","v","pos","len"}, written in
+    place; ``kv_source``: cross-attention memory.  ``fresh``: the caller
+    promises the queries are at positions 0..S-1 on every row and ``cache``
+    (if any) is empty, as in the uncached forward with default positions and
+    the serving engine's prefill.
+
+    Self-attention over S > 1 fresh tokens without softcap goes through
+    ``ops.attention`` (flash attention, GQA read in place): the queries'
+    keys are exactly the S in-flight ones, and the slots of an empty cache
+    beyond them are masked by ``pos = -1`` in the reference, so restricting
+    attention to the in-flight keys with causal index masking computes the
+    same function.  Every other case (decode against ring slots, softcap,
+    cross-attention) takes the ported dense / chunked path."""
+    B, S, D = x.shape
+    h, kh, dh, dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.v_dim
+    g = h // kh
+    q = _mm(x, params["wq"].reshape(D, h * dh)).view(B, S, h, dh)
+    src = x if kv_source is None else kv_source
+    Ssrc = src.shape[1]
+    k = _mm(src, params["wk"].reshape(D, kh * dh)).view(B, Ssrc, kh, dh)
+    v = _mm(src, params["wv"].reshape(D, kh * dv)).view(B, Ssrc, kh, dv)
+    if cfg.qk_norm:
+        q = rmsnorm(params["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(params["knorm"], k, cfg.norm_eps)
+    if kv_source is None:  # self-attention: rotary on q & k
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    T = cache["k"].shape[1] if cache is not None else S
+    if cache is not None:
+        _write_cache(cache, k, v, positions)
+    if (kv_source is None and fresh and S > 1 and not cfg.logit_softcap
+            and dv == dh):
+        # the reference attends over the cache (same keys, cast to its
+        # dtype) when S < T, over the in-flight keys when S >= T
+        kv_dt = cache["v"].dtype if cache is not None and S < T else v.dtype
+        dt = torch.promote_types(q.dtype, kv_dt)
+        out = ops.attention(q.to(dt).transpose(1, 2),
+                            k.to(kv_dt).to(dt).transpose(1, 2),
+                            v.to(kv_dt).to(dt).transpose(1, 2),
+                            causal=True, window=window)
+        out = out.transpose(1, 2).to(kv_dt)
+    else:
+        if cache is None:
+            k_att, v_att = k, v
+            kpos = torch.arange(Ssrc, device=x.device)
+        elif S >= T:
+            # prefill: attend over the full in-flight keys (queries at
+            # early positions need keys the ring has already dropped)
+            k_att, v_att, kpos = k, v, positions[0]
+        else:
+            k_att, v_att, kpos = cache["k"], cache["v"], cache["pos"]
+        qg = q.reshape(B, S, kh, g, dh)
+        if kv_source is not None:  # cross-attention: full visibility
+            mask = torch.ones((1, S, k_att.shape[1]), dtype=torch.bool,
+                              device=x.device)
+            out = _attend(qg, k_att, v_att, mask, cfg.logit_softcap)
+        else:
+            out = _dispatch_attend(qg, k_att, v_att, positions, kpos,
+                                   causal=True, window=window,
+                                   softcap=cfg.logit_softcap,
+                                   chunk=cfg.attn_chunk)
+    out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# FFNs
+# ---------------------------------------------------------------------------
+
+def ffn_init(gen, d: int, dff: int, dtype=torch.float32, device=None):
+    return {
+        "wi": _init(gen, (d, dff), ("embed", "ff"), dtype=dtype,
+                    device=device),
+        "wg": _init(gen, (d, dff), ("embed", "ff"), dtype=dtype,
+                    device=device),
+        "wo": _init(gen, (dff, d), ("ff", "embed"), dtype=dtype,
+                    device=device),
+    }
+
+
+def ffn_apply(params, x, act: str = "silu"):
+    """SwiGLU through ``ops.swiglu`` over ``[-1, d]``; the GeLU variant
+    (tanh approximation, as ``jax.nn.gelu``) in plain torch."""
+    if act == "silu":
+        dt = torch.promote_types(x.dtype, params["wg"].dtype)
+        d = x.shape[-1]
+        out = ops.swiglu(x.reshape(-1, d).to(dt).contiguous(),
+                         params["wg"].to(dt), params["wi"].to(dt),
+                         params["wo"].to(dt))
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+    h = F.gelu(_mm(x, params["wg"]), approximate="tanh") * _mm(
+        x, params["wi"])
+    return _mm(h, params["wo"])
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a layer kind of the JAX package the port lacks."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")

@@ -1,0 +1,148 @@
+"""The port's LM kernels (B2-B4) against the JAX package's, on the CPU.
+
+On a CPU tensor each wrapper of ``repro_torch.kernels.ops`` takes its
+kernel's plain torch version; both those wrappers and the port's ``*_ref``
+oracles are held here against ``repro.kernels.ref`` and against the Pallas
+kernels in interpret mode (as ``tests/test_kernels.py`` runs them off-TPU),
+on the same seeded NumPy inputs, over that file's sweeps.  Tolerances are
+its ``TOL``: fp32 2e-5 (the two frameworks sum in other orders), bf16 2e-2
+(one bf16 rounding of the output on either side).  The CUDA kernels
+themselves are held against the plain versions on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from test_kernels import ATTN_SWEEP, FFN_SWEEP  # noqa: E402
+
+from repro.kernels import flash_attention, fused_rmsnorm, fused_swiglu  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models.layers import _attend as jax_attend  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+DTYPES = ("float32", "bfloat16")
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+RMS_SHAPES = [(64, 64), (256, 128), (128, 512)]
+
+
+def rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def both(a, dtype):
+    """One NumPy array as a jax and a torch array of ``dtype`` (both round
+    fp32 to bf16 to nearest even, so the inputs are identical)."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ATTN_SWEEP)
+def test_attention_matches_reference_and_pallas(case, dtype):
+    B, H, S, d, causal, window, bq, bk = case
+    (jq, tq), (jk, tk), (jv, tv) = (both(rand((B, H, S, d), 7 + i), dtype)
+                                    for i in range(3))
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    pallas = flash_attention(jq, jk, jv, causal=causal, window=window,
+                             block_q=bq, block_k=bk, interpret=True)
+    got_ref = tref.attention_ref(tq, tk, tv, causal=causal, window=window)
+    got = ops.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(f32(got_ref), f32(want), **TOL[dtype])
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FFN_SWEEP)
+def test_swiglu_matches_reference_and_pallas(case, dtype):
+    M, d, f, bm, bf = case
+    jx, tx = both(rand((M, d), 1), dtype)
+    (jg, tg), (ji, ti) = (both(rand((d, f), s, d ** -0.5), dtype)
+                          for s in (2, 3))
+    jo, to = both(rand((f, d), 4, f ** -0.5), dtype)
+    want = jref.swiglu_ref(jx, jg, ji, jo)
+    pallas = fused_swiglu(jx, jg, ji, jo, block_m=bm, block_f=bf,
+                          interpret=True)
+    np.testing.assert_allclose(f32(tref.swiglu_ref(tx, tg, ti, to)),
+                               f32(want), **TOL[dtype])
+    np.testing.assert_allclose(f32(ops.swiglu(tx, tg, ti, to)), f32(pallas),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_matches_reference_and_pallas(shape, dtype):
+    M, d = shape
+    jx, tx = both(rand((M, d), 5), dtype)
+    js, ts = both(rand((d,), 6), "float32")
+    want = jref.rmsnorm_ref(jx, js)
+    pallas = fused_rmsnorm(jx, js, block_m=64, interpret=True)
+    np.testing.assert_allclose(f32(tref.rmsnorm_ref(tx, ts)), f32(want),
+                               **TOL[dtype])
+    got = ops.rmsnorm(tx, ts)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_lengths_match_reference(dtype):
+    """Lengths no block divides: the Pallas kernels refuse them, the port's
+    kernels take them, and their plain versions agree with the reference's
+    oracles there."""
+    jq, tq = both(rand((2, 3, 100, 32), 11), dtype)
+    jk, tk = both(rand((2, 3, 100, 32), 12), dtype)
+    np.testing.assert_allclose(
+        f32(ops.attention(tq, tk, tk, window=37)),
+        f32(jref.attention_ref(jq, jk, jk, window=37)), **TOL[dtype])
+    jx, tx = both(rand((77, 48), 13), dtype)
+    (jg, tg), (ji, ti) = (both(rand((48, 90), s, 48 ** -0.5), dtype)
+                          for s in (14, 15))
+    jo, to = both(rand((90, 48), 16, 90 ** -0.5), dtype)
+    np.testing.assert_allclose(f32(ops.swiglu(tx, tg, ti, to)),
+                               f32(jref.swiglu_ref(jx, jg, ji, jo)),
+                               **TOL[dtype])
+    js, ts = both(rand((48,), 17), dtype)
+    np.testing.assert_allclose(f32(ops.rmsnorm(tx, ts)),
+                               f32(jref.rmsnorm_ref(jx, js)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_gqa_head_order_matches_jax_attend(window):
+    """Query head h reads kv head h // G, the head order of the reference's
+    ``q.reshape(B, S, Kh, G, dh)`` (``layers.py:259``)."""
+    B, S, Kh, G, dh = 2, 48, 2, 3, 16
+    q, k, v = rand((B, S, Kh * G, dh), 21), rand((B, S, Kh, dh), 22), \
+        rand((B, S, Kh, dh), 23)
+    qi = np.arange(S)[:, None]
+    ki = np.arange(S)[None, :]
+    mask = (ki <= qi) & ((ki > qi - window) if window else True)
+    want = jax_attend(jnp.asarray(q).reshape(B, S, Kh, G, dh),
+                      jnp.asarray(k), jnp.asarray(v),
+                      jnp.asarray(mask)[None])
+    got = ops.attention(torch.from_numpy(q).transpose(1, 2),
+                        torch.from_numpy(k).transpose(1, 2),
+                        torch.from_numpy(v).transpose(1, 2), window=window)
+    np.testing.assert_allclose(f32(got.transpose(1, 2)),
+                               f32(want).reshape(B, S, Kh * G, dh),
+                               **TOL["float32"])
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.rmsnorm(x, torch.zeros(4, device="meta"))
+

@@ -1,0 +1,256 @@
+"""The port's model zoo (attention + dense-FFN subset) against the JAX
+package's, on the CPU, with the reference's own seeded parameters carried
+over by :func:`repro_torch.bridge.lm_params_from_reference`.
+
+Tolerances: fp32 2e-5 for one layer (the two frameworks sum in other
+orders); 1e-4 for the logits of a whole smoke LM (those differences pass
+through 4 layers and a 256-way head, on activations of unit scale); the
+decode-equals-prefill tolerance of ``tests/test_models_smoke.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import init_caches as jax_init_caches  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models import lm_apply as jax_lm_apply  # noqa: E402
+from repro.models import lm_init as jax_lm_init  # noqa: E402
+from repro.models import param_values as jax_param_values  # noqa: E402
+from repro_torch.bridge import lm_params_from_reference  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import init_caches, lm_apply, lm_init  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import param_values  # noqa: E402
+from repro_torch.models.config import ATTN_LOCAL, BlockSpec  # noqa: E402
+from repro_torch.models.layers import tree_map  # noqa: E402
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
+ARCHS = ("tinyllama-1.1b", "gemma3-4b")
+
+
+def rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def lms():
+    """(port cfg, JAX cfg, JAX values, bridged port values) per arch."""
+    out = {}
+    for arch in ARCHS:
+        jcfg = jax_get_config(arch, smoke=True)
+        jvals = jax_param_values(jax_lm_init(jax.random.PRNGKey(0), jcfg))
+        out[arch] = (get_config(arch, smoke=True), jcfg, jvals,
+                     lm_params_from_reference(np_tree(jvals)))
+    return out
+
+
+def shapes(tree):
+    return tree_map(lambda t: tuple(t.shape), tree)
+
+
+def test_configs_are_the_references():
+    from repro.configs import ARCHS as JAX_ARCHS
+
+    from repro_torch.configs import ARCHS as PORT_ARCHS
+
+    assert PORT_ARCHS == JAX_ARCHS
+    for arch in JAX_ARCHS:
+        for smoke in (False, True):
+            port, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
+            assert vars(port) == vars(ref)
+            assert port.layout() == ref.layout()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_nested_and_flat_give_the_port_tree(lms, arch):
+    cfg, _, jvals, bridged = lms[arch]
+    flat = {jax.tree_util.keystr(path): np.asarray(leaf) for path, leaf in
+            jax.tree_util.tree_flatten_with_path(jvals)[0]}
+    from_flat = lm_params_from_reference(flat)
+    port = param_values(lm_init(cfg, torch.Generator().manual_seed(0)))
+    drop_empty = {k: v for k, v in shapes(port).items() if v != {}}
+    assert shapes(from_flat) == drop_empty
+    assert shapes(bridged) == shapes(port)
+    for key, arr in flat.items():
+        node = from_flat
+        for part in key[2:-2].split("']['"):
+            node = node[part]
+        assert np.array_equal(node.numpy(), arr), key
+    bf16 = lm_params_from_reference(flat, dtype=torch.bfloat16)
+    assert bf16["embed"].dtype == torch.bfloat16
+
+
+def test_layer_rmsnorm_and_rope_match():
+    x = rand((2, 5, 3, 16), 1)
+    scale = rand((16,), 2)
+    np.testing.assert_allclose(
+        tl.rmsnorm({"scale": torch.from_numpy(scale)},
+                   torch.from_numpy(x)).numpy(),
+        np.asarray(jl.rmsnorm({"scale": jnp.asarray(scale)},
+                              jnp.asarray(x))), **F32)
+    pos = np.tile(np.arange(5)[None] + 7, (2, 1))
+    np.testing.assert_allclose(
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                      10_000.0).numpy(),
+        np.asarray(jl.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                 10_000.0)), **F32)
+
+
+@pytest.mark.parametrize("S,chunk", [(24, 1024), (512, 128)],
+                         ids=["dense", "chunked"])
+@pytest.mark.parametrize("window", [0, 100])
+def test_layer_dispatch_attend_matches(S, chunk, window):
+    """Dense ``_attend`` at S = 24; ``_attend_chunked`` forced with S = 512
+    and chunk 128 (query chunks of 128, key chunks of 256), with and
+    without a sliding window."""
+    B, Kh, G, dh = 1, 2, 2, 16
+    q, k, v = rand((B, S, Kh, G, dh), 3), rand((B, S, Kh, dh), 4), \
+        rand((B, S, Kh, dh), 5)
+    qpos = np.tile(np.arange(S)[None], (B, 1))
+    kpos = np.arange(S)
+    want = jl._dispatch_attend(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(qpos),
+                               jnp.asarray(kpos), True, window, 0.0, chunk)
+    got = tl._dispatch_attend(*(torch.from_numpy(a) for a in
+                                (q, k, v, qpos, kpos)), True, window, 0.0,
+                              chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def _attn_params(arch, seed):
+    jcfg = jax_get_config(arch, smoke=True)
+    p = jax_param_values(jl.attention_init(jax.random.PRNGKey(seed), jcfg))
+    return jcfg, p, lm_params_from_reference(np_tree(p))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_layer_attention_apply_uncached_matches(arch):
+    jcfg, jp, tp = _attn_params(arch, 1)
+    cfg = get_config(arch, smoke=True)
+    x = rand((2, 12, cfg.d_model), 6)
+    pos = np.tile(np.arange(12)[None], (2, 1))
+    want, _ = jl.attention_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                                 window=8)
+    for fresh in (True, False):  # the kernel's route and the ported one
+        got, _ = tl.attention_apply(tp, cfg, torch.from_numpy(x),
+                                    torch.from_numpy(pos), window=8,
+                                    fresh=fresh)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("arch,S,window", [
+    ("tinyllama-1.1b", 20, 0), ("gemma3-4b", 12, 16), ("gemma3-4b", 20, 16)],
+    ids=["global", "local-short", "local-wraps"])
+def test_flash_route_equals_jax_prefill_into_an_empty_cache(arch, S, window):
+    """The flash-attention route (queries against the S in-flight keys with
+    causal index masking) against the reference's cached prefill, which
+    attends over all T ring slots with the empty ones masked by pos = -1
+    (and over the in-flight keys when S >= T): same output, same cache."""
+    jcfg, jp, tp = _attn_params(arch, 2)
+    cfg = get_config(arch, smoke=True)
+    spec = BlockSpec(ATTN_LOCAL if window else "attn", "dense")
+    B, max_len = 2, 32
+    x = rand((B, S, cfg.d_model), 7)
+    pos = np.tile(np.arange(S)[None], (B, 1))
+    from repro.models.blocks import init_cache_for_block as jax_cache
+
+    from repro_torch.models.blocks import init_cache_for_block
+
+    want, jcache = jl.attention_apply(
+        jp, jcfg, jnp.asarray(x), jnp.asarray(pos), window=window,
+        cache=jax_cache(jcfg, spec, B, max_len, jnp.float32))
+    cache = init_cache_for_block(cfg, spec, B, max_len, torch.float32)
+    got, cache = tl.attention_apply(tp, cfg, torch.from_numpy(x),
+                                    torch.from_numpy(pos), window=window,
+                                    cache=cache, fresh=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    for key in ("k", "v", "pos", "len"):
+        np.testing.assert_allclose(cache[key].numpy(),
+                                   np.asarray(jcache[key]), **F32)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_layer_ffn_matches(act):
+    p = jax_param_values(jl.ffn_init(jax.random.PRNGKey(3), 32, 96))
+    x = rand((2, 7, 32), 8)
+    want = jl.ffn_apply(p, jnp.asarray(x), act)
+    got = tl.ffn_apply(lm_params_from_reference(np_tree(p)),
+                       torch.from_numpy(x), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_apply_logits_match(lms, arch):
+    cfg, jcfg, jvals, tvals = lms[arch]
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab, (2, 32))
+    want, _, _ = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens))
+    got, caches, aux = lm_apply(tvals, cfg, torch.from_numpy(tokens))
+    assert caches is None and float(aux) == 0.0
+    assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    last, _, _ = lm_apply(tvals, cfg, torch.from_numpy(tokens),
+                          last_only=True)
+    np.testing.assert_allclose(last[:, 0].numpy(), got[:, -1].numpy(),
+                               **F32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_prefill(lms, arch):
+    """Token-by-token decode through the caches against the full forward
+    (``tests/test_models_smoke.py:102``), and the cached prefill against
+    the reference's."""
+    cfg, jcfg, jvals, tvals = lms[arch]
+    B, S = 2, 32
+    tokens = torch.from_numpy(
+        np.random.default_rng(10).integers(0, cfg.vocab, (B, S)))
+    full, _, _ = lm_apply(tvals, cfg, tokens)
+    caches = init_caches(cfg, B, max_len=S + 4, dtype=torch.float32)
+    outs = []
+    for t in range(S):
+        pos = torch.full((B, 1), t, dtype=torch.int64)
+        lg, caches, _ = lm_apply(tvals, cfg, tokens[:, t:t + 1],
+                                 positions=pos, caches=caches)
+        outs.append(lg[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(),
+                               rtol=2e-2, atol=2e-3)
+
+    P = 20
+    jc = jax_init_caches(jcfg, B, S + 4, jnp.float32)
+    want, jc, _ = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens[:, :P]),
+                               positions=jnp.tile(jnp.arange(P)[None], (B, 1)),
+                               caches=jc)
+    tc = init_caches(cfg, B, S + 4, torch.float32)
+    got, tc, _ = lm_apply(tvals, cfg, tokens[:, :P], caches=tc, prefill=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    np.testing.assert_allclose(tc["scan"]["p0"]["k"].numpy(),
+                               np.asarray(jc["scan"]["p0"]["k"]), **LM_TOL)
+
+
+def test_prefill_takes_no_positions(lms):
+    cfg, _, _, tvals = lms["tinyllama-1.1b"]
+    with pytest.raises(ValueError, match="positions=None"):
+        lm_apply(tvals, cfg, torch.zeros((1, 4), dtype=torch.int64),
+                 positions=torch.zeros((1, 4), dtype=torch.int64),
+                 caches=init_caches(cfg, 1, 8, torch.float32), prefill=True)
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("xlstm-350m", "A3"), ("jamba-v0.1-52b", "A3"),
+    ("deepseek-v2-236b", "A3"), ("arctic-480b", "A3"),
+    ("whisper-base", "A4")])
+def test_unported_kinds_raise_naming_their_roadmap_item(arch, item):
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        lm_init(cfg, torch.Generator().manual_seed(0))
