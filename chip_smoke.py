@@ -15,11 +15,13 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   co-exploration settings on the real ResNet-50 netlist through the CLI
   entry point, byte-equal to the ``vector`` backend's result;
 * LM serving: the RMSNorm, fused SwiGLU and flash-attention kernels against
-  their plain versions in bf16 and fp32 at the serving shapes and at ragged
-  ones, ``python -m repro_torch.launch.serve`` at the full width of
-  tinyllama-1.1b in bf16 with each kernel's launches held to the count the
-  model's structure implies, and an fp32 forward and greedy decode on the
-  card against the same on the CPU.
+  their plain versions in bf16 and fp32 at the serving shapes, at ragged
+  ones and across each kernel's tile edges; serving at the full width of
+  tinyllama-1.1b in bf16 with a bf16 cache (the weights and prompts
+  ``python -m repro_torch.launch.serve`` makes) and ``launch.serve`` itself
+  at its defaults (fp32 cache) on a short run, each with every kernel's
+  launches held to the count the model's structure implies; and an fp32
+  forward and greedy decode on the card against the same on the CPU.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -83,10 +85,10 @@ LM_KERNELS = {
     "rmsnorm": ("rmsnorm", "src/repro/kernels/rmsnorm.py:13",
                 ("rmsnorm_kernel",)),
     "fused_ffn": ("fused_swiglu", "src/repro/kernels/fused_ffn.py:31",
-                  ("ffn_kernel", "ffn_reduce_kernel")),
+                  ("ffn_hidden", "ffn_out")),
     "flash_attention": ("flash_attention",
                         "src/repro/kernels/flash_attention.py:38",
-                        ("attn_kernel",)),
+                        ("flash_attn_",)),
 }
 # H100 SXM dense bf16 tensor-core rate, NVIDIA's data sheet
 PEAK_BF16_OPS_PER_S = 989e12
@@ -95,13 +97,22 @@ LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # kernel-against-plain shapes: the serving path's (8 x 512 and 4 x 200
 # prefill, batch-8 decode) at tinyllama-1.1b's width, and ragged ones
 RMS_CASES = ((4096, 2048), (800, 2048), (8, 2048), (4095, 2048), (3, 200))
-FFN_CASES = ((4096, 2048, 5632), (800, 2048, 5632), (8, 2048, 5632),
-             (77, 200, 300))
-# (B, H, Hkv, S, d, causal, window)
+# B3 at M on both sides of the small/large-M tile threshold (16) and of
+# the large tiles' 128 rows, the prefill and decode shapes, and a ragged
+# shape (no TMA: the small tiles at any M)
+FFN_CASES = tuple((m, 2048, 5632) for m in (1, 4, 8, 16, 63, 64, 65, 129,
+                                            800, 4096)) + ((77, 200, 300),)
+# (B, H, Hkv, S, d, causal, window): the serving shapes and ragged ones
 ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               (2, 4, 4, 130, 32, True, 48), (1, 2, 2, 100, 128, False, 0),
               (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0))
-
+# B2's tile edges (64 queries, 64 keys): every S, with and without a window
+# (40 keys: its edge falls inside tiles), every head dim, and Hkv of 1, H/8
+# and H query heads' worth, causal, at B 1, H 16
+ATTN_SWEEP_S = (1, 63, 64, 65, 127, 128, 129, 200, 512, 1024)
+ATTN_SWEEP = tuple((1, 16, hkv, s, d, True, w) for s in ATTN_SWEEP_S
+                   for w in (0, 40) for d in (16, 32, 64, 128, 256)
+                   for hkv in (1, 2, 16))
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -371,26 +382,6 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_kernel_ms(fn, reps: int):
-    """Device time per launch of the CUDA kernel from ``torch.profiler``,
-    or ``None`` when the profiler shows no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if "finish_batch_kernel" in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us > 0 else None
-
-
 def phase_timing(n: int) -> dict:
     """The kernel and its plain version at ``n`` lanes on the card."""
     import torch
@@ -401,8 +392,8 @@ def phase_timing(n: int) -> dict:
     reps = 2000 if n < 100_000 else 50
     ms = _events_ms(lambda: fb.finish_lanes(lanes), reps)
     plain_ms = _events_ms(lambda: fb.finish_lanes_plain(lanes), reps)
-    device_ms = _profiled_kernel_ms(lambda: fb.finish_lanes(lanes),
-                                    min(reps, 200))
+    device_ms = _profiled_ms(lambda: fb.finish_lanes(lanes), min(reps, 200),
+                             ("finish_batch_kernel",))
     bytes_s = n * LANE_BYTES / HBM_BYTES_PER_S
     ops_s = n * LANE_OPS / PEAK_SCALAR_OPS_PER_S
     out = {"phase": "timing", "n": n, "ms": ms, "device_ms": device_ms,
@@ -414,14 +405,20 @@ def phase_timing(n: int) -> dict:
 
 # -- LM serving ---------------------------------------------------------------
 
-# python -m repro_torch.launch.serve at tinyllama-1.1b's full width (22
-# layers, d 2048, 32 heads / 4 KV heads, d_ff 5632, vocab 32000; bf16
-# compute, random weights from the seed): 8 requests of 512 tokens, then
-# 4 of 200 (a length no tile divides), 32 new tokens each
-SERVE_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b",
-              "--new-tokens", "32", "--max-batch", "8", "--seed", "0")
-SERVE_RUNS = (("--requests", "8", "--prompt-len", "512"),
-              ("--requests", "4", "--prompt-len", "200"))
+# the serve phase's main runs: what python -m repro_torch.launch.serve makes
+# for tinyllama-1.1b at full width (22 layers, d 2048, 32 heads / 4 KV heads,
+# d_ff 5632, vocab 32000; bf16 compute, random weights from seed 0, max
+# batch 8, 32 new tokens) served with a bf16 cache, the configuration
+# PERF.md describes: 8 requests of 512 tokens, then 4 of 200 (a length no
+# tile divides).  (requests, prompt length)
+SERVE_ARCH, SERVE_SEED, SERVE_MAX_BATCH, SERVE_NEW_TOKENS = \
+    "tinyllama-1.1b", 0, 8, 32
+SERVE_RUNS = ((8, 512), (4, 200))
+# and launch.serve.main itself at its defaults (the reference's fp32
+# cache) on a short run
+SERVE_CLI_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b",
+                  "--requests", "2", "--prompt-len", "64", "--new-tokens",
+                  "8")
 # launches the model's structure implies (tinyllama: 22 attention + dense
 # FFN layers): per forward, 2 norms a layer + the final norm and one FFN a
 # layer; per prefill, one attention a layer (decode attends over the cache
@@ -442,9 +439,39 @@ def _lm_counters():
     return {"rmsnorm": rn, "fused_ffn": ff, "flash_attention": fa}
 
 
-def _serve_once(extra) -> tuple:
-    """One ``repro_torch.launch.serve.main`` call; its requests' tokens
-    and its ``group:`` lines."""
+def _check_tokens(what, tokens, n, new_tokens) -> None:
+    if sorted(tokens) != list(range(n)) or any(
+            len(t) != new_tokens or not all(0 <= x < 32000 for x in t)
+            for t in tokens.values()):
+        raise AssertionError(f"{what}: not {new_tokens} in-vocab tokens for "
+                             f"each of {n} requests")
+
+
+def _serve_bf16(n: int, prompt_len: int) -> tuple:
+    """The requests, weights and serving config ``launch.serve.main`` makes
+    for ``n`` prompts of ``prompt_len`` tokens, served with a bf16 cache;
+    its requests' tokens and its groups' stats."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+
+    cfg, values, reqs, scfg = serve.make_run(
+        SERVE_ARCH, False, n, prompt_len, SERVE_NEW_TOKENS, SERVE_MAX_BATCH,
+        SERVE_SEED, "cuda")
+    eng = ServeEngine(cfg, values, dataclasses.replace(
+        scfg, cache_dtype=torch.bfloat16))
+    del values
+    tokens = eng.generate(reqs)
+    _check_tokens(f"serve {n} x {prompt_len}", tokens, n, SERVE_NEW_TOKENS)
+    return tokens, serve.group_stats(eng)
+
+
+def _serve_cli() -> tuple:
+    """One ``repro_torch.launch.serve.main`` call at :data:`SERVE_CLI_ARGS`;
+    its requests' tokens and its ``group:`` lines."""
     import contextlib
     import io
 
@@ -452,9 +479,9 @@ def _serve_once(extra) -> tuple:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main([*SERVE_ARGS, *extra])
+        rc = serve.main(list(SERVE_CLI_ARGS))
     if rc != 0:
-        raise AssertionError(f"serve {extra} exited {rc}")
+        raise AssertionError(f"serve {SERVE_CLI_ARGS} exited {rc}")
     tokens, groups = {}, []
     for line in buf.getvalue().splitlines():
         if line.startswith("req "):
@@ -462,13 +489,16 @@ def _serve_once(extra) -> tuple:
             tokens[int(rid)] = json.loads(toks)
         elif line.startswith("group: "):
             groups.append(json.loads(line[len("group: "):]))
-    n = int(extra[1])
-    if sorted(tokens) != list(range(n)) or any(
-            len(t) != 32 or not all(0 <= x < 32000 for x in t)
-            for t in tokens.values()):
-        raise AssertionError(f"serve {extra}: not 32 in-vocab tokens for "
-                             f"each of {n} requests")
+    _check_tokens("serve CLI", tokens, 2, 8)
     return tokens, groups
+
+
+def _structural(groups) -> dict:
+    """Launches the model's structure implies for these serving groups."""
+    forwards = sum(1 + g["decode_steps"] for g in groups)
+    return {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
+            "fused_ffn": N_LAYERS * forwards,
+            "flash_attention": N_LAYERS * len(groups)}
 
 
 def _trace_tops(prof, n: int = 12) -> dict:
@@ -493,12 +523,13 @@ def _trace_tops(prof, n: int = 12) -> dict:
 
 
 def phase_serve() -> dict:
-    """The serving path at full width through its CLI entry: both runs
+    """The serving path at full width with a bf16 cache: both runs
     untraced, with every kernel's launch count set to 0 before and read
     after and held to the structural count; both again, warm, for their
     timings; then the 8 x 512 run under ``torch.profiler`` for the card's
     busy time and the heaviest kernels and host ops, with greedy tokens
-    equal to its first run's."""
+    equal to its first run's.  Last, ``launch.serve.main`` at its defaults
+    (fp32 cache) on a short run, its launches held to the structure too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -508,18 +539,15 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runs = [_serve_once(extra) for extra in SERVE_RUNS]
+    runs = [_serve_bf16(*r) for r in SERVE_RUNS]
     wall = time.perf_counter() - t0
     launches = {lib: mod.launches for lib, mod in counters.items()}
     groups = [g for _, gs in runs for g in gs]
-    forwards = sum(1 + g["decode_steps"] for g in groups)
-    expected = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
-                "fused_ffn": N_LAYERS * forwards,
-                "flash_attention": N_LAYERS * len(groups)}
+    expected = _structural(groups)
     for g in groups:
         emit({"phase": "serve", "pass": "first", "group": g})
     # the same runs again, warm (kernels loaded, allocator primed)
-    for _, gs in (_serve_once(extra) for extra in SERVE_RUNS):
+    for _, gs in (_serve_bf16(*r) for r in SERVE_RUNS):
         for g in gs:
             emit({"phase": "serve", "pass": "warm", "group": g})
 
@@ -530,7 +558,7 @@ def phase_serve() -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        traced = _serve_once(SERVE_RUNS[0])
+        traced = _serve_bf16(*SERVE_RUNS[0])
         traced_wall = time.perf_counter() - t1
     activity = _device_activity(prof, tuple(names))
     from torch.autograd import DeviceType
@@ -543,10 +571,20 @@ def phase_serve() -> dict:
     for g in traced[1]:
         emit({"phase": "serve", "pass": "traced", "group": g})
     same_tokens = runs[0][0] == traced[0]
+
+    for mod in counters.values():
+        mod.launches = 0
+    cli_tokens, cli_groups = _serve_cli()
+    cli_launches = {lib: mod.launches for lib, mod in counters.items()}
+    cli = {"args": list(SERVE_CLI_ARGS), "cache_dtype": "float32",
+           "groups": cli_groups, "launches": cli_launches,
+           "expected_launches": _structural(cli_groups)}
     out = {
-        "phase": "serve", "args": list(SERVE_ARGS),
-        "runs": [list(r) for r in SERVE_RUNS],
-        "wall_s": wall, "forwards": forwards,
+        "phase": "serve", "arch": SERVE_ARCH, "seed": SERVE_SEED,
+        "max_batch": SERVE_MAX_BATCH, "new_tokens": SERVE_NEW_TOKENS,
+        "cache_dtype": "bfloat16", "runs": [list(r) for r in SERVE_RUNS],
+        "wall_s": wall, "forwards": sum(1 + g["decode_steps"]
+                                        for g in groups),
         "launches": launches, "expected_launches": expected,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "traced_run": list(SERVE_RUNS[0]), "traced_wall_s": traced_wall,
@@ -557,6 +595,7 @@ def phase_serve() -> dict:
                               else None),
         "tokens_equal_traced_untraced": same_tokens,
         **_trace_tops(prof),
+        "cli": cli,
     }
     emit(out)
     if launches != expected:
@@ -564,6 +603,9 @@ def phase_serve() -> dict:
                              f"{expected}")
     if not same_tokens:
         raise AssertionError("the traced serve run gave other tokens")
+    if cli_launches != cli["expected_launches"]:
+        raise AssertionError(f"serve CLI launches {cli_launches} != "
+                             f"structural {cli['expected_launches']}")
     return out
 
 
@@ -670,11 +712,13 @@ def _lm_calls():
             yield ("fused_ffn", {"m": m, "d": d, "f": f}, dtype,
                    lambda a=args: ff.fused_swiglu(*a),
                    lambda a=args: ff.swiglu_plain(*a))
-        for i, (b, h, hkv, s, d, causal, window) in enumerate(ATTN_CASES):
+        for i, (b, h, hkv, s, d, causal, window) in enumerate(
+                ATTN_CASES + ATTN_SWEEP):
             args = _attn_inputs(b, h, hkv, s, d, dtype, 40 + 3 * i)
             kw = {"causal": causal, "window": window}
             yield ("flash_attention",
-                   {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, **kw}, dtype,
+                   {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, **kw,
+                    "sweep": i >= len(ATTN_CASES)}, dtype,
                    lambda a=args, kw=kw: fa.flash_attention(*a, **kw),
                    lambda a=args, kw=kw: fa.attention_plain(*a, **kw))
 
@@ -694,6 +738,7 @@ def phase_lm_kernels_vs_plain() -> dict:
         "cudnn": torch.backends.cudnn.allow_tf32}})
     errs: dict = {}
     failed = []
+    sweep: dict = {}  # (dtype, d) -> [cases, max error] of ATTN_SWEEP
     for name, case, dtype, kernel, plain in _lm_calls():
         got = kernel()
         want = plain()
@@ -706,22 +751,36 @@ def phase_lm_kernels_vs_plain() -> dict:
             got.float(), want.float(), rtol=tol, atol=tol)
         key = (name, tname)
         errs[key] = max(errs.get(key, 0.0), err)
-        emit({"phase": "lm_kernels_vs_plain", "kernel": name, **case,
-              "dtype": tname, "tol": tol, "max_abs_err": err,
-              "finite": finite, "ok": ok})
+        if case.pop("sweep", False) and ok:
+            agg = sweep.setdefault((tname, case["d"]), [0, 0.0])
+            agg[0] += 1
+            agg[1] = max(agg[1], err)
+        else:
+            emit({"phase": "lm_kernels_vs_plain", "kernel": name, **case,
+                  "dtype": tname, "tol": tol, "max_abs_err": err,
+                  "finite": finite, "ok": ok})
         if not ok:
             failed.append((name, case, tname))
+    for (tname, d), (n, err) in sorted(sweep.items()):
+        emit({"phase": "lm_kernels_vs_plain", "kernel": "flash_attention",
+              "sweep": {"s": ATTN_SWEEP_S, "window": [0, 40],
+                        "hkv": [1, 2, 16], "h": 16}, "d": d, "dtype": tname,
+              "cases_ok": n, "max_abs_err": err})
     if failed:
         raise AssertionError(f"LM kernels disagree with their plain "
                              f"versions: {failed}")
     return errs
 
 
-def _profiled_ms(fn, reps: int, names) -> "float | None":
+def _profiled_ms(fn, reps: int, names=("",)) -> "float | None":
     """Device time per call of the device kernels whose names contain one
-    of ``names``, from ``torch.profiler``; ``None`` when the profiler shows
-    no device time for them."""
+    of ``names`` (every device kernel by default), from ``torch.profiler``:
+    each kernel's mean duration times its launches per call.  (The trace
+    can miss a few launches of a run, so the sum over the run divided by
+    ``reps`` would undercount.)  ``None`` when the profiler shows no device
+    time for them."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -730,29 +789,40 @@ def _profiled_ms(fn, reps: int, names) -> "float | None":
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if any(n in evt.key for n in names):
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us > 0 else None
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(n in e.name
+                                                    for n in names):
+            c = per_name.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    total_us = sum(us / n * max(1, round(n / reps))
+                   for n, us in per_name.values())
+    return total_us / 1e3 if total_us > 0 else None
 
 
-def _timing_row(lib, shape, kernel, plain, library, nbytes, ops,
-                reps) -> dict:
+def _timing_row(lib, shape, kernel, plain, library, nbytes, ops, reps,
+                dtype="bfloat16", composite=None) -> dict:
     """Times of one kernel at one shape: between CUDA events back to back,
-    device time from the profiler, its plain version and the library call;
-    the bound from the bytes the function must move and its bf16 tensor
-    operations."""
+    device time from the profiler, its plain version, the library call
+    (events, and its kernels' device time) and a composite of library calls
+    (a yardstick where no single call computes the function); the bound
+    from the bytes the function must move and its operations at the tensor
+    cores' bf16 rate (fp32: the rate outside the tensor cores)."""
     ms = _events_ms(kernel, reps)
     device_ms = _profiled_ms(kernel, reps, LM_KERNELS[lib][2])
     plain_ms = _events_ms(plain, max(reps // 4, 3))
     library_ms = _events_ms(library, reps) if library else None
+    library_device_ms = _profiled_ms(library, reps) if library else None
+    composite_ms = _events_ms(composite, reps) if composite else None
     bytes_s = nbytes / HBM_BYTES_PER_S
-    ops_s = ops / PEAK_BF16_OPS_PER_S
-    row = {"phase": "lm_timing", "kernel": lib, **shape, "dtype": "bfloat16",
+    ops_s = ops / (PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
+                   else PEAK_SCALAR_OPS_PER_S)
+    row = {"phase": "lm_timing", "kernel": lib, **shape, "dtype": dtype,
            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
+           "composite_ms": composite_ms,
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "bytes": nbytes, "ops": ops}
     emit(row)
@@ -760,11 +830,13 @@ def _timing_row(lib, shape, kernel, plain, library, nbytes, ops,
 
 
 def phase_lm_timing() -> dict:
-    """B2, B3 and B4 at the serving path's shapes in bf16 (prefill of
-    8 x 512 tokens and batch-8 decode at tinyllama-1.1b's width).  The
-    library calls (``F.scaled_dot_product_attention`` with GQA,
-    ``F.rms_norm``) are timed here only; the port never calls them.
-    Returns the prefill row of each kernel."""
+    """B2, B3 and B4 at the serving path's shapes in bf16: prefill of 8 x 512
+    and 4 x 200 tokens and decode at batch 8 and 4, at tinyllama-1.1b's
+    width; B3 also in fp32 (the route ``launch.serve`` takes at its default
+    fp32 cache).  The library calls (``F.scaled_dot_product_attention`` with
+    GQA, ``F.rms_norm``) and B3's composite (three bf16 ``torch.matmul``s
+    and ``F.silu(g) * u``) are timed here only; the port never calls them.
+    Returns the 8 x 512 prefill row of each kernel, with B3's decode row."""
     import torch
     import torch.nn.functional as F
 
@@ -781,26 +853,41 @@ def phase_lm_timing() -> dict:
             lambda: F.rms_norm(x, (2048,), s, 1e-5),
             nbytes=(2 * m * 2048 + 2048) * 2, ops=0, reps=200)
         rows.setdefault("rmsnorm", row)
-    for m in (4096, 8):
-        x, wg, wi, wo = _ffn_inputs(m, 2048, 5632, bf16, 2)
+    d, f = 2048, 5632
+    for dtype in (bf16, torch.float32):
+        tname = str(dtype).removeprefix("torch.")
+        for m in ((4096, 800, 8, 4) if dtype == bf16 else (4096, 8)):
+            x, wg, wi, wo = _ffn_inputs(m, d, f, dtype, 2)
+
+            def composite(x=x, wg=wg, wi=wi, wo=wo):
+                return (F.silu(x @ wg) * (x @ wi)) @ wo
+
+            row = _timing_row(
+                "fused_ffn", {"m": m, "d": d, "f": f},
+                lambda: ff.fused_swiglu(x, wg, wi, wo),
+                lambda: ff.swiglu_plain(x, wg, wi, wo), None,
+                nbytes=(2 * m * d + 3 * d * f) * dtype.itemsize,
+                ops=6 * m * d * f, reps=(20 if m > 8 else 200)
+                if dtype == bf16 else (3 if m > 8 else 20),
+                dtype=tname, composite=composite if dtype == bf16 else None)
+            if dtype == bf16:
+                rows.setdefault("fused_ffn", row)
+                if m == 8:
+                    rows["fused_ffn_decode"] = row
+    for b, s_len in ((8, 512), (4, 200)):
+        h, hkv, hd = 32, 4, 64
+        q, k, v = _attn_inputs(b, h, hkv, s_len, hd, bf16, 3)
+        live_pairs = b * h * s_len * (s_len + 1) // 2  # causal
         row = _timing_row(
-            "fused_ffn", {"m": m, "d": 2048, "f": 5632},
-            lambda: ff.fused_swiglu(x, wg, wi, wo),
-            lambda: ff.swiglu_plain(x, wg, wi, wo), None,
-            nbytes=(2 * m * 2048 + 3 * 2048 * 5632) * 2,
-            ops=6 * m * 2048 * 5632, reps=20 if m > 8 else 200)
-        rows.setdefault("fused_ffn", row)
-    b, h, hkv, s_len, d = 8, 32, 4, 512, 64
-    q, k, v = _attn_inputs(b, h, hkv, s_len, d, bf16, 3)
-    live_pairs = b * h * s_len * (s_len + 1) // 2  # causal
-    rows["flash_attention"] = _timing_row(
-        "flash_attention",
-        {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": d, "causal": True},
-        lambda: fa.flash_attention(q, k, v), lambda: fa.attention_plain(q, k, v),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True),
-        nbytes=(2 * b * h + 2 * b * hkv) * s_len * d * 2,
-        ops=4 * d * live_pairs, reps=100)
+            "flash_attention",
+            {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd, "causal": True},
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
+            ops=4 * hd * live_pairs, reps=100)
+        rows.setdefault("flash_attention", row)
     return rows
 
 
@@ -888,7 +975,13 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "composite_ms": row["composite_ms"],
         })
+        if lib == "fused_ffn":
+            dec = lm_rows["fused_ffn_decode"]
+            kernels[-1]["decode"] = {k: dec[k] for k in (
+                "m", "ms", "device_ms", "plain_ms", "composite_ms",
+                "bound_ms", "bound_by")}
     emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

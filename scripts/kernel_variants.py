@@ -1,0 +1,271 @@
+#!/usr/bin/env python3
+"""Time tile-shape variants of the port's B2 and B3 CUDA kernels on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
+the CUDA toolkit::
+
+    python3 scripts/kernel_variants.py [--only ffn|attn]
+
+Each variant is the kernel's source in ``src/repro_torch/csrc/`` with a
+few lines replaced (``fused_ffn.cu``: its M threshold and stages;
+``flash_attention.cu``: the TMA route's stages and blocks, and probes),
+built with the port's nvcc flags into ``build/variants/`` (all variants at
+once) and called through the port's own wrapper.  Every variant is checked
+against the plain torch version (bf16 tolerance 2e-2) before it is timed
+(CUDA events back to back, and device time from ``torch.profiler``) at the
+serving shapes of tinyllama-1.1b; probes (``probe_*``, one part of the loop
+removed) are timed though wrong, to show what each part costs.  The library
+yardsticks (``F.scaled_dot_product_attention`` with GQA, three bf16
+``torch.matmul``s for SwiGLU) are timed in the same process.  One JSON
+line per variant; the first line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+# each variant: (old text, new text) substitutions in the kernel's source
+FFN_VARIANTS = {
+    "repo": (),
+    # every M on one tile kind: the threshold (kSmallMaxM) is where they cross
+    "small_tiles_only": (("constexpr long long kSmallMaxM = 16;",
+                          "constexpr long long kSmallMaxM = 1LL << 40;"),),
+    "large_tiles_only": (("constexpr long long kSmallMaxM = 16;",
+                          "constexpr long long kSmallMaxM = 0;"),),
+    "large_out_4_stages": (("STAGES = NB == 2 ? 4 : 6",
+                            "STAGES = NB == 2 ? 4 : 4"),),
+}
+# the TMA route's stages and blocks an SM, and its loop with one part
+# removed (probes: wrong results, timed anyway)
+ATTN_VARIANTS = {
+    "repo": (),
+    "kvs4": (("  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;",
+              "  static constexpr int KVS = 4, MINB = D == 64 ? 3 : 2;"),),
+    "minb2": (("  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;",
+               "  static constexpr int KVS = 3, MINB = 2;"),),
+    "probe_no_exp": (("sc[j] = fast_exp2(fmaf(sc[j], sl2, "
+                      "-msl[(j >> 1) & 1]));",
+                      "sc[j] = fmaf(sc[j], sl2, -msl[(j >> 1) & 1]);"),),
+    "probe_no_pv": (("          wgmma_rs_m64n64k16<1>(acc, p_prev[kk], dv);",
+                     "          acc[kk] += __uint_as_float(p_prev[kk][0]);"),),
+    "probe_no_mask": (("      if (k0 < max(lo[0], lo[1]) || "
+                       "k0 + BKV - 1 > min(hi[0], hi[1])) {",
+                       "      if (false) {"),),
+}
+
+
+def variant_sources(name: str) -> dict:
+    src = (ROOT / "src/repro_torch/csrc" / f"{name}.cu").read_text()
+    variants = FFN_VARIANTS if name == "fused_ffn" else ATTN_VARIANTS
+    out = {}
+    for tag, subs in variants.items():
+        text = src
+        for old, new in subs:
+            assert text.count(old) == 1, (tag, old)
+            text = text.replace(old, new)
+        out[tag] = text
+    return out
+
+
+def build_variants(name: str) -> dict:
+    """Every variant of ``csrc/<name>.cu``, one nvcc each, all at once."""
+    from repro_torch.kernels import _build
+
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found")
+    work = ROOT / "build" / "variants"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, text in variant_sources(name).items():
+        cu = work / f"{name}_{tag}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+               str(so), str(cu)]
+        procs[tag] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for tag, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            print(json.dumps({"kernel": name, "variant": tag,
+                              "build_failed": err[-3000:]}), flush=True)
+            continue
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in _build._SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        # ptxas: each kernel's name, then its registers and spills
+        report = []
+        for ln in err.splitlines():
+            if "Compiling entry function" in ln:
+                report.append(ln.split("'")[1][-60:])
+            elif "spill" in ln or "registers" in ln:
+                report.append(ln.split(" : ")[-1].strip())
+        libs[tag] = (lib, report)
+    return libs
+
+
+def events_ms(fn, reps: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, name: str):
+    """Device time per call of the device kernels whose names contain
+    ``name`` (all of them for ``""``), from ``torch.profiler``, host launch
+    cost excluded; ``None`` when the profiler shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    per_name: dict = {}  # the trace may miss a few launches: mean x count
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name:
+            c = per_name.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    total = sum(us / n * max(1, round(n / reps))
+                for n, us in per_name.values())
+    return total / 1e3 if total > 0 else None
+
+
+def close(got, want) -> bool:
+    import torch
+
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def randn(shape, seed, scale=1.0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=g, device="cuda")
+            * scale).to(torch.bfloat16)
+
+
+def run_ffn() -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ffn as ff
+
+    d, f = 2048, 5632
+    for m in (4096, 800, 64, 32, 24, 16, 8):
+        x = randn((m, d), 1)
+        wg, wi = randn((d, f), 2, d ** -0.5), randn((d, f), 3, d ** -0.5)
+        wo = randn((f, d), 4, f ** -0.5)
+        want = ff.swiglu_plain(x, wg, wi, wo)
+        print(json.dumps({"kernel": "fused_ffn", "m": m, "variant":
+                          "composite (3 bf16 matmuls + silu * u)",
+                          "ms": events_ms(lambda: (F.silu(x @ wg) * (x @ wi))
+                                          @ wo, 20)}), flush=True)
+        for tag, (lib, spills) in LIBS["fused_ffn"].items():
+            _build._LOADED["fused_ffn"] = lib
+            ok = close(ff.fused_swiglu(x, wg, wi, wo), want)
+
+            def call():
+                return ff.fused_swiglu(x, wg, wi, wo)
+
+            print(json.dumps({
+                "kernel": "fused_ffn", "m": m, "variant": tag, "ok": ok,
+                "ptxas": spills,
+                "ms": events_ms(call, 20 if m > 64 else 200) if ok else None,
+                "device_ms": device_ms(call, 20, "ffn_") if ok else None}),
+                flush=True)
+    _build._LOADED.pop("fused_ffn", None)
+
+
+def run_attn() -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    for b, s in ((8, 512), (4, 200), (8, 1024)):
+        h, hkv, hd = 32, 4, 64
+        q = randn((b, s, h, hd), 5).transpose(1, 2)
+        k = randn((b, s, hkv, hd), 6).transpose(1, 2)
+        v = randn((b, s, hkv, hd), 7).transpose(1, 2)
+        want = fa.attention_plain(q, k, v)
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        print(json.dumps({"kernel": "flash_attention", "b": b, "s": s,
+                          "variant": "F.scaled_dot_product_attention",
+                          "ms": events_ms(sdpa, 100),
+                          "device_ms": device_ms(sdpa, 50, "")}), flush=True)
+        for tag, (lib, spills) in LIBS["flash_attention"].items():
+            _build._LOADED["flash_attention"] = lib
+            ok = close(fa.flash_attention(q, k, v), want)
+            def call():
+                return fa.flash_attention(q, k, v)
+
+            print(json.dumps({
+                "kernel": "flash_attention", "b": b, "s": s, "variant": tag,
+                "ok": ok, "ptxas": spills,
+                "ms": events_ms(call, 100) if ok else None,
+                "device_ms": device_ms(call, 50, "flash_attn_")
+                if ok or tag.startswith("probe_") else None}), flush=True)
+    _build._LOADED.pop("flash_attention", None)
+
+
+LIBS: dict = {}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["ffn", "attn"], default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
+    names = {"ffn": ["fused_ffn"], "attn": ["flash_attention"],
+             None: ["fused_ffn", "flash_attention"]}[args.only]
+    for name in names:
+        LIBS[name] = build_variants(name)
+    if "fused_ffn" in names:
+        run_ffn()
+    if "flash_attention" in names:
+        run_attn()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

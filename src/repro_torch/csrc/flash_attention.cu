@@ -5,43 +5,59 @@
 // (launched by flash_attention).  That kernel ran the grid (B*H, S/128,
 // S/128) with the kv axis in order on one core, carrying (acc, m, l) in VMEM
 // scratch across kv steps, and needed S % 128 == 0 and q, k, v of one head
-// count.  Here one block of 4 warps owns (batch * head, 64 queries) and
-// loops over the live 64-key tiles itself, so the carry lives in registers:
-// each warp holds 16 query rows, their fp32 output accumulator (16 x d in
-// the m16n8 fragment layout) and the running max and sum of its rows.
-//
-// Per kv tile: K and V are staged in shared memory; S = Q K^T by warp-level
-// mma.sync (tile_mma.cuh), scaled, masked (causal, window, and keys past a
-// ragged S) to -1e30 as the TPU kernel does; the row max is reduced over
-// the 4 lanes that share a row; P = exp(S - m) goes through a per-warp
-// shared tile into the P V product.  Tiles wholly above the diagonal or left
-// of the window are never loaded.  Output: acc / max(l, 1e-30), cast to
-// q's dtype, so a fully masked row gives 0 as the reference's NaN -> 0.
+// count.  Here one block owns (batch * head, a tile of queries) and loops
+// over the live key tiles itself, so the carry lives in registers: each
+// warp holds 16 query rows, their fp32 output accumulator (16 x d in the
+// m16n8 fragment layout) and the running max and sum of its rows.
 //
 // Layout: q, o are [B, H, S, d] and k, v [B, Hkv, S, d] by strides (the last
 // dim contiguous), so the model's [B, S, H, d] tensors are read and written
 // in place, and query head h reads kv head h / (H / Hkv) (the reference's
 // head order h = kv_head * G + g), with no copy of k or v per query head.
+// Output: acc / max(l, 1e-30), cast to q's dtype, so a fully masked row
+// gives 0 as the reference's NaN -> 0.
+//
+// bf16, d = 64 and 128 (flash_attn_wgmma_kernel), FlashAttention-3 style:
+// persistent blocks of one producer warp and one consumer warpgroup of 64
+// query rows, three blocks an SM (d = 64), each walking work items (a
+// head's 64 query positions) heaviest first.  The producer keeps TMA loads
+// of Q and of K, V tiles (64 keys, 128-byte swizzled) in flight through a
+// ring of three stages with mbarriers; the consumer runs wgmma: S = Q K^T
+// from shared memory (K read K-major), then O += P V with P in registers
+// as the A operand (the accumulator's layout is the A fragment's) and V
+// read MN-major (the transpose bit), and runs the softmax of S_t while
+// P_{t-1} V_{t-1} is on the tensor cores.
+// bf16, other d (flash_attn_bf16_kernel), and d = 64, 128 where the strides
+// or addresses do not allow TMA: the same online softmax on warp-level
+// mma.sync, operands by ldmatrix (.trans for V), 16-byte cp.async copies
+// (element loads where rows are not 16-byte aligned) into two stages.
+// Both: the softmax runs in base 2 with scale * log2(e) folded into one
+// FMA before each exponential; masks are applied only on tiles that cross
+// a row's live range (the diagonal, the window's edge, a ragged end);
+// tiles dead for a whole block are never loaded; query tiles are issued
+// heaviest first (the last causal tile has the most keys).
+//
+// fp32 route (flash_attn_f32_kernel): 4 warps and 64 queries a block,
+// scalar FMAs in full fp32 (tile_mma.cuh), P through a per-warp shared
+// tile; it exists for checking against fp32 references and for fp32
+// models, not for speed.
 //
 // Bound: bytes at the serving shapes.  At B = 8, H = 32, Hkv = 4, S = 512,
-// d = 64 the function must move 37.7 MB (q, k, v and o once, bf16), 11 us at
-// 3.35 TB/s, against 8.6 GFLOP of causal products (8.7 us at 989 TFLOP/s).
-// This first version reloads K and V per 64-query tile and feeds the tensor
-// cores with plain loads, so it is far from that bound.  The depth loops
-// stay rolled (#pragma unroll 1): unrolled, the ten (dtype, d) variants
-// took ~100 s to build.
+// d = 64 the function must move 37.7 MB (q, k, v and o once, bf16), 11 us
+// at 3.35 TB/s, against 8.6 GFLOP of causal products (8.7 us at 989
+// TFLOP/s); the 33.6 M exponentials of the softmax take the SMs' special
+// function units ~9 us besides (16 a cycle an SM).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, PAD = 8;
-constexpr int kWarps = 4, kThreads = 32 * kWarps;
-constexpr int LDP = BKV + PAD;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -51,41 +67,536 @@ struct Args {
   int H, Hkv, S, causal, window;
   float scale;
   long long qs[3], ks[3], vs[3], os[3];  // strides of b, h, s (elements)
+  int vec;  // 16-byte aligned rows: cp.async and paired stores allowed
 };
-
-template <typename T, int D>
-constexpr size_t smem_bytes() {
-  return (size_t)((BQ + 2 * BKV) * (D + PAD) + kWarps * 16 * LDP) *
-         sizeof(T);
-}
 
 __device__ __forceinline__ bool live(int q, int kv, int S, int causal,
                                      int window) {
   return kv < S && (!causal || kv <= q) && (!window || kv > q - window);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQ * LD;
-  T* Vs = Ks + BKV * LD;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  T* Pw = Vs + BKV * LD + warp * 16 * LDP;
-  const T zero = from_f32<T>(0.f);
+// ---- bf16 on mma.sync (d = 16, 32, 256; any d where TMA cannot read) ------
+
+// 4 warps of 16 query rows a block; keys a tile: 64, two stages.  Q's
+// fragments stay in registers where d <= 64; MINB blocks an SM at least.
+constexpr int MQ = 64, MKV = 64, MWARPS = 4, MTHREADS = 32 * MWARPS;
+template <int D> struct MmaAttnCfg {
+  static constexpr bool QREG = D <= 64;
+  static constexpr int MINB = D <= 32 ? 4 : D == 64 ? 2 : 1;
+};
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  return (size_t)(MQ + 4 * MKV) * (D + 8) * sizeof(bf16);
+}
+
+// rows r0 .. r0 + ROWS - 1 of one head (row s at src + s * ss) into dst
+// [ROWS][D + 8], zero past S
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long ss, int r0, int S,
+                                          int vec) {
+  constexpr int LD = D + 8, CH = D / 8;
+  if (vec) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * CH; i += MTHREADS) {
+      const int r = i / CH, c = (i % CH) * 8, s = r0 + r;
+      const bool ok = s < S;
+      cp_async16(dst + r * LD + c, ok ? src + s * ss + c : src, ok ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int i = threadIdx.x; i < ROWS * D; i += MTHREADS) {
+      const int r = i / D, c = i % D, s = r0 + r;
+      dst[r * LD + c] = s < S ? src[s * ss + c] : zero;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
+    flash_attn_bf16_kernel(Args a) {
+  constexpr bool QREG = MmaAttnCfg<D>::QREG;
+  constexpr int LD = D + 8;
+  constexpr uint32_t KV_STAGE = MKV * LD * sizeof(bf16);  // bytes
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + MQ * LD;       // [2][MKV][LD]
+  bf16* Vs = Ks + 2 * MKV * LD;  // [2][MKV][LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int S = a.S;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int kh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * BQ;
-  const T* q = (const T*)a.q + b * a.qs[0] + h * a.qs[1];
-  const T* k = (const T*)a.k + b * a.ks[0] + kh * a.ks[1];
-  const T* v = (const T*)a.v + b * a.vs[0] + kh * a.vs[1];
-  T* o = (T*)a.o + b * a.os[0] + h * a.os[1];
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;  // heaviest tiles first
+  const bf16* q = (const bf16*)a.q + b * a.qs[0] + h * a.qs[1];
+  const bf16* k = (const bf16*)a.k + b * a.ks[0] + kh * a.ks[1];
+  const bf16* v = (const bf16*)a.v + b * a.vs[0] + kh * a.vs[1];
+  bf16* o = (bf16*)a.o + b * a.os[0] + h * a.os[1];
 
-  for (int e = tid; e < BQ * D; e += kThreads) {
+  const int kv_end = a.causal ? min(S, q0 + MQ) : S;
+  const int kv_begin = a.window ? max(0, q0 - a.window + 1) : 0;
+  const int t_begin = kv_begin / MKV, t_end = (kv_end + MKV - 1) / MKV;
+
+  load_rows<D, MQ>(Qs, q, a.qs[2], q0, S, a.vec);
+  cp_async_commit();
+  load_rows<D, MKV>(Ks, k, a.ks[2], t_begin * MKV, S, a.vec);
+  load_rows<D, MKV>(Vs, v, a.vs[2], t_begin * MKV, S, a.vec);
+  cp_async_commit();
+
+  // each lane's fragment addresses: tiles are then reached by constants
+  const int row0 = q0 + 16 * warp;  // this warp's rows: row0 .. row0 + 15
+  const uint32_t q_lane = smem_addr(Qs + 16 * warp * LD + frag_off_a(LD));
+  const uint32_t k_lane = smem_addr(Ks + frag_off_b_nmajor(LD));
+  const uint32_t v_lane = smem_addr(Vs + frag_off_a(LD));
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
+    cp_async_wait<1>();  // Q has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldmatrix_x4(qf[kk], q_lane + 16 * kk * 2);
+  }
+  // the live keys of this lane's rows g and g + 8, lo <= key <= hi
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + (lane >> 2) + 8 * hh;
+    hi[hh] = a.causal ? min(S - 1, r) : S - 1;
+    lo[hh] = a.window ? r - a.window + 1 : 0;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m_run[2] = {-kInf, -kInf}, l_run[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_rows<D, MKV>(Ks + (st ^ 1) * MKV * LD, k, a.ks[2], (t + 1) * MKV,
+                        S, a.vec);
+      load_rows<D, MKV>(Vs + (st ^ 1) * MKV * LD, v, a.vs[2], (t + 1) * MKV,
+                        S, a.vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q) have landed
+    __syncthreads();
+    const int k0 = t * MKV;
+    const bool dead = (a.causal && k0 > row0 + 15) ||
+                      (a.window && k0 + MKV - 1 <= row0 - a.window);
+    if (!dead) {
+      const uint32_t kt = k_lane + st * KV_STAGE, vt = v_lane + st * KV_STAGE;
+      float sc[MKV / 8][4];
+#pragma unroll
+      for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) af[r] = qf[kk][r];
+        } else {
+          ldmatrix_x4(af, q_lane + 16 * kk * 2);
+        }
+#pragma unroll
+        for (int j = 0; j < MKV / 16; ++j) {
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, kt + (16 * j * LD + 16 * kk) * 2);
+          mma_bf16(sc[2 * j], af, bfr[0], bfr[1]);
+          mma_bf16(sc[2 * j + 1], af, bfr[2], bfr[3]);
+        }
+      }
+      // keys outside [lo, hi] of a row, only where the tile crosses bounds
+      if (k0 < max(lo[0], lo[1]) || k0 + MKV - 1 > min(hi[0], hi[1])) {
+        const int c0 = k0 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = c0 + 8 * j + (c & 1);
+            if (key < lo[c >> 1] || key > hi[c >> 1]) sc[j][c] = -kInf;
+          }
+      }
+      float mx[2] = {-kInf, -kInf};
+#pragma unroll
+      for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], sc[j][c]);
+      float alpha[2], msl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m_run[hh], mx[hh]);
+        // a row with no live key yet keeps max -inf: use 0 there, so that
+        // its terms are 2^-inf = 0 and never inf - inf
+        msl[hh] = (m_new == -kInf ? 0.f : m_new) * sl2;
+        alpha[hh] = fast_exp2(m_run[hh] * sl2 - msl[hh]);
+        m_run[hh] = m_new;
+        l_run[hh] *= alpha[hh];  // this lane's share of the row sum
+      }
+#pragma unroll
+      for (int j = 0; j < MKV / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = fast_exp2(fmaf(sc[j][c], sl2, -msl[c >> 1]));
+          l_run[c >> 1] += p;
+          sc[j][c] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+#pragma unroll
+      for (int kk = 0; kk < MKV / 16; ++kk) {
+        // P's accumulator fragments of keys 16 kk .. 16 kk + 15 are the A
+        // fragment of this depth step
+        const float* s0 = sc[2 * kk];
+        const float* s1 = sc[2 * kk + 1];
+        const uint32_t pa[4] = {
+            pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+            pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t bfr[4];
+          ldmatrix_x4_trans(bfr, vt + (16 * kk * LD + 16 * n) * 2);
+          mma_bf16(acc[2 * n], pa, bfr[0], bfr[1]);
+          mma_bf16(acc[2 * n + 1], pa, bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+  cp_async_wait<0>();
+
+  float l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = l_run[hh] + __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + frag_row(2 * hh);
+      if (r >= S) continue;
+      bf16* dst = o + r * a.os[2] + 8 * n + frag_col(2 * hh);
+      const float x0 = acc[n][2 * hh] * l[hh], x1 = acc[n][2 * hh + 1] * l[hh];
+      if (a.vec) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16_rn(x0);
+        dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+}
+
+// ---- bf16 on TMA + wgmma (d = 64, 128) --------------------------------------
+
+// A block: one producer warp and one consumer warpgroup of 64 query rows,
+// persistent over work items (a head's 64 query positions); keys a tile:
+// 64; K and V in KVS stages; MINB blocks an SM at least.  More resident
+// warpgroups beat larger tiles and shared ones here (PERF.md): three
+// blocks an SM at d = 64.
+template <int D> struct WgAttnCfg {
+  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;
+};
+constexpr int WG_THREADS = 128 + 32, WG_BKV = 64;
+
+template <int D>
+constexpr size_t smem_bytes_wg() {
+  return 1024 + (size_t)(2 * 64 + 2 * WgAttnCfg<D>::KVS * WG_BKV) * D * 2 +
+         (2 * WgAttnCfg<D>::KVS + 4) * sizeof(uint64_t);
+}
+
+// q, k, v as 4-d tensor maps (d, s, head, batch), boxes of 64 x 64
+struct AttnMaps {
+  CUtensorMap q, k, v;
+};
+
+// Work item i (heaviest first: the last query tiles of every head come
+// first) -> batch, head, first query row and live key tiles
+struct AttnItem {
+  int b, h, q0, t_begin, t_end;
+};
+
+__device__ __forceinline__ AttnItem attn_item(const Args& a, int B, int i) {
+  constexpr int BKV = WG_BKV;
+  const int n_q = (a.S + 63) / 64, bh = B * a.H;
+  AttnItem it;
+  it.q0 = (n_q - 1 - i / bh) * 64;
+  it.b = (i % bh) / a.H;
+  it.h = (i % bh) % a.H;
+  const int kv_end = a.causal ? min(a.S, it.q0 + 64) : a.S;
+  const int kv_begin = a.window ? max(0, it.q0 - a.window + 1) : 0;
+  it.t_begin = kv_begin / BKV;
+  it.t_end = (kv_end + BKV - 1) / BKV;
+  return it;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
+    flash_attn_wgmma_kernel(const __grid_constant__ AttnMaps maps, Args a,
+                            int B, int n_items) {
+  constexpr int BKV = WG_BKV, KVS = WgAttnCfg<D>::KVS, NB = D / 64;
+  constexpr int Q_BYTES = 64 * D * 2, KV_BYTES = BKV * D * 2;
+  // a tile: NB column blocks of 64 d (one TMA box each), 64 rows of 128
+  // bytes a block
+  constexpr int BLK = 64 * 128;
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ __align__(1024) unsigned char attn_smem[];
+  unsigned char* Qs =  // two Q tiles: this item's and the next one's
+      attn_smem + ((1024 - (smem_addr(attn_smem) & 1023)) & 1023);
+  unsigned char* Ks = Qs + 2 * Q_BYTES;     // KVS stages
+  unsigned char* Vs = Ks + KVS * KV_BYTES;  // KVS stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + KVS * KV_BYTES);
+  uint64_t* empty = full + KVS;
+  uint64_t* q_full = empty + KVS;  // 2
+  uint64_t* q_empty = q_full + 2;  // 2
+  const int S = a.S, lane = threadIdx.x & 31;
+  const int group = a.H / a.Hkv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KVS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Both roles walk the same items and number the K, V tiles they pass
+  // (g) and the items (n), which give every barrier's stage and phase.
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (lane == 0) {
+      int g = 0, n = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+        const AttnItem it = attn_item(a, B, i);
+        const int qb = n & 1, kh = it.h / group;
+        if (n >= 2) mbar_wait(&q_empty[qb], (n / 2 - 1) & 1);
+        mbar_expect_tx(&q_full[qb], Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(Qs + qb * Q_BYTES + c * BLK, &maps.q, &q_full[qb],
+                      64 * c, it.q0, it.h, it.b);
+        for (int t = it.t_begin; t < it.t_end; ++t, ++g) {
+          const int s = g % KVS;
+          if (g >= KVS) mbar_wait(&empty[s], (g / KVS - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            const int off = s * KV_BYTES + c * BLK;
+            tma_load_4d(Ks + off, &maps.k, &full[s], 64 * c, t * BKV, kh,
+                        it.b);
+            tma_load_4d(Vs + off, &maps.v, &full[s], 64 * c, t * BKV, kh,
+                        it.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup
+  const float sl2 = a.scale * kLog2e;
+  int g = 0, n = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+    const AttnItem it = attn_item(a, B, i);
+    const int qb = n & 1;
+    const unsigned char* Qw = Qs + qb * Q_BYTES;
+    const int row0 = it.q0 + 16 * (threadIdx.x / 32);  // this warp's rows
+    // the live keys of this thread's rows g and g + 8, lo <= key <= hi
+    int lo[2], hi[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + (lane >> 2) + 8 * hh;
+      hi[hh] = a.causal ? min(S - 1, r) : S - 1;
+      lo[hh] = a.window ? r - a.window + 1 : 0;
+    }
+    float acc[D / 2];  // O, m64nD layout: acc[4 n + c], n8 tile n of d
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float m_run[2] = {-kInf, -kInf}, l_run[2] = {0.f, 0.f};
+    // P of the previous tile (the A fragments of its 16-key steps) and its
+    // stage: in flight in O += P V while this tile's softmax runs.  The
+    // first product adds 0 * V of the first tile (finite: loaded or zeros).
+    uint32_t p_prev[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p_prev[kk][r] = 0u;
+    int st_prev = g % KVS;
+    auto issue_pv = [&]() {
+      const unsigned char* Vp = Vs + st_prev * KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t dv = gmma_desc(Vp + kk * 16 * 128, BLK, 1024);
+        if constexpr (D == 64)
+          wgmma_rs_m64n64k16<1>(acc, p_prev[kk], dv);
+        else
+          wgmma_rs_m64n128k16<1>(acc, p_prev[kk], dv);
+      }
+    };
+    mbar_wait(&q_full[qb], (n / 2) & 1);
+
+    // Each iteration: S_t = Q K_t and O += P_{t-1} V_{t-1} go to the
+    // tensor cores back to back; the softmax of S_t runs while P_{t-1}
+    // V_{t-1} is in flight; then O is rescaled and the stage of tile t - 1
+    // goes back to the producer.  No product is issued conditionally (the
+    // compiler would then wait on each one).
+    for (int t = it.t_begin; t < it.t_end; ++t, ++g) {
+      const int st = g % KVS;
+      mbar_wait(&full[st], (g / KVS) & 1);
+      const int k0 = t * BKV;
+      float sc[BKV / 2];  // S, m64n64 layout: sc[4 j + c], n8 tile j
+#pragma unroll
+      for (int j = 0; j < BKV / 2; ++j) sc[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int col = (kk % 4) * 32;  // 16 d into the 128-byte rows
+        wgmma_ss_m64n64k16<0>(
+            sc, gmma_desc(Qw + (kk / 4) * BLK + col, 16, 1024),
+            gmma_desc(Ks + st * KV_BYTES + (kk / 4) * BLK + col, 16, 1024));
+      }
+      wgmma_commit();
+      issue_pv();
+      wgmma_commit();
+      wgmma_wait<1>();  // S_t has landed; P_{t-1} V_{t-1} may be in flight
+
+      // keys outside [lo, hi] of a row (causal, window, ragged end) only
+      // where the tile crosses some row's bounds
+      if (k0 < max(lo[0], lo[1]) || k0 + BKV - 1 > min(hi[0], hi[1])) {
+        const int c0 = k0 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = c0 + 8 * j + (c & 1);
+            if (key < lo[c >> 1] || key > hi[c >> 1]) sc[4 * j + c] = -kInf;
+          }
+      }
+      float mx[2] = {-kInf, -kInf};
+#pragma unroll
+      for (int j = 0; j < BKV / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      float alpha[2], msl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m_run[hh], mx[hh]);
+        // a row with no live key yet keeps max -inf: use 0 there, so that
+        // its terms are 2^-inf = 0 and never inf - inf
+        msl[hh] = (m_new == -kInf ? 0.f : m_new) * sl2;
+        alpha[hh] = fast_exp2(m_run[hh] * sl2 - msl[hh]);
+        m_run[hh] = m_new;
+        l_run[hh] *= alpha[hh];  // this lane's share of the row sum
+      }
+#pragma unroll
+      for (int j = 0; j < BKV / 2; ++j) {
+        sc[j] = fast_exp2(fmaf(sc[j], sl2, -msl[(j >> 1) & 1]));
+        l_run[(j >> 1) & 1] += sc[j];
+      }
+      wgmma_wait<0>();  // P_{t-1} V_{t-1} has landed in O
+      if (t > it.t_begin && threadIdx.x == 0) mbar_arrive(&empty[st_prev]);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        p_prev[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        p_prev[j / 2][(j % 2) * 2 + 1] =
+            pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+      st_prev = st;
+    }
+    wgmma_fence();
+    issue_pv();
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (threadIdx.x == 0) {  // the last tile and Q go back to the producer
+      mbar_arrive(&empty[st_prev]);
+      mbar_arrive(&q_empty[qb]);
+    }
+
+    float l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] = l_run[hh] + __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      l[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+    }
+    bf16* o = (bf16*)a.o + it.b * a.os[0] + it.h * a.os[1];
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + frag_row(2 * hh);
+        if (r < S)
+          *reinterpret_cast<__nv_bfloat162*>(o + r * a.os[2] + 8 * nn +
+                                             frag_col(2 * hh)) =
+              __floats2bfloat162_rn(acc[4 * nn + 2 * hh] * l[hh],
+                                    acc[4 * nn + 2 * hh + 1] * l[hh]);
+      }
+  }
+}
+
+// the 4-d tensor map (d, s, heads, batch) of q, k or v, by element strides
+int attn_map(CUtensorMap* map, const void* ptr, int d, int S, int heads,
+             int B, const long long* bhs) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)S, (uint64_t)heads,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)bhs[2] * 2, (uint64_t)bhs[1] * 2,
+                               (uint64_t)bhs[0] * 2};
+  const uint32_t box[4] = {64, 64, 1, 1};
+  return tma_map_bf16(map, ptr, 4, dims, strides, box);
+}
+
+// ---- fp32 -------------------------------------------------------------------
+
+constexpr int FQ = 64, FKV = 64, FPAD = 8, FWarps = 4, FThreads = 32 * FWarps;
+constexpr int LDP = FKV + FPAD;
+
+template <int D>
+constexpr size_t smem_bytes_f32() {
+  return (size_t)((FQ + 2 * FKV) * (D + FPAD) + FWarps * 16 * LDP) *
+         sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
+  constexpr int LD = D + FPAD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + FQ * LD;
+  float* Vs = Ks + FKV * LD;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  float* Pw = Vs + FKV * LD + warp * 16 * LDP;
+  const int S = a.S;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * FQ;
+  const float* q = (const float*)a.q + b * a.qs[0] + h * a.qs[1];
+  const float* k = (const float*)a.k + b * a.ks[0] + kh * a.ks[1];
+  const float* v = (const float*)a.v + b * a.vs[0] + kh * a.vs[1];
+  float* o = (float*)a.o + b * a.os[0] + h * a.os[1];
+
+  for (int e = tid; e < FQ * D; e += FThreads) {
     const int r = e / D, c = e % D, s = q0 + r;
-    Qs[r * LD + c] = s < S ? q[s * a.qs[2] + c] : zero;
+    Qs[r * LD + c] = s < S ? q[s * a.qs[2] + c] : 0.f;
   }
 
   float acc[D / 8][4];
@@ -95,37 +606,36 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
 
-  // live key range of this query tile
-  const int kv_end = a.causal ? min(S, q0 + BQ) : S;
+  const int kv_end = a.causal ? min(S, q0 + FQ) : S;
   const int kv_begin = a.window ? max(0, q0 - a.window + 1) : 0;
   const int row0 = q0 + 16 * warp;
 
-  for (int kt = kv_begin / BKV; kt * BKV < kv_end; ++kt) {
-    const int k0 = kt * BKV;
+  for (int kt = kv_begin / FKV; kt * FKV < kv_end; ++kt) {
+    const int k0 = kt * FKV;
     __syncthreads();  // every warp is done with the previous K, V tile
-    for (int e = tid; e < BKV * D; e += kThreads) {
+    for (int e = tid; e < FKV * D; e += FThreads) {
       const int r = e / D, c = e % D, s = k0 + r;
       const bool ok = s < S;
-      Ks[r * LD + c] = ok ? k[s * a.ks[2] + c] : zero;
-      Vs[r * LD + c] = ok ? v[s * a.vs[2] + c] : zero;
+      Ks[r * LD + c] = ok ? k[s * a.ks[2] + c] : 0.f;
+      Vs[r * LD + c] = ok ? v[s * a.vs[2] + c] : 0.f;
     }
     __syncthreads();
 
-    float sc[BKV / 8][4];
+    float sc[FKV / 8][4];
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j)
+    for (int j = 0; j < FKV / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
 #pragma unroll 1
     for (int kk = 0; kk < D; kk += 16)
 #pragma unroll
-      for (int j = 0; j < BKV / 8; ++j)
-        mma_tile<T>(sc[j], Qs + 16 * warp * LD + kk, LD, Ks + 8 * j * LD + kk,
-                    1, LD);
+      for (int j = 0; j < FKV / 8; ++j)
+        mma_tile_f32(sc[j], Qs + 16 * warp * LD + kk, LD, Ks + 8 * j * LD + kk,
+                     1, LD);
 
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j)
+    for (int j = 0; j < FKV / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kv = k0 + 8 * j + frag_col(c);
@@ -143,10 +653,10 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
       m_new[hh] = fmaxf(m_run[hh], mx[hh]);
       alpha[hh] = expf(m_run[hh] - m_new[hh]);
       m_run[hh] = m_new[hh];
-      l_run[hh] *= alpha[hh];  // this lane's share of the row sum
+      l_run[hh] *= alpha[hh];
     }
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j)
+    for (int j = 0; j < FKV / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kv = k0 + 8 * j + frag_col(c);
@@ -155,7 +665,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
                 ? expf(sc[j][c] - m_new[c >> 1])
                 : 0.f;
         l_run[c >> 1] += p;
-        Pw[frag_row(c) * LDP + 8 * j + frag_col(c)] = from_f32<T>(p);
+        Pw[frag_row(c) * LDP + 8 * j + frag_col(c)] = p;
       }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -163,10 +673,10 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
       for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
     __syncwarp();
 #pragma unroll 1
-    for (int kk = 0; kk < BKV; kk += 16)
+    for (int kk = 0; kk < FKV; kk += 16)
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        mma_tile<T>(acc[n], Pw + kk, LDP, Vs + kk * LD + 8 * n, LD, 1);
+        mma_tile_f32(acc[n], Pw + kk, LDP, Vs + kk * LD + 8 * n, LD, 1);
     __syncwarp();
   }
 
@@ -182,35 +692,60 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = row0 + frag_row(c);
-      if (r < S)
-        o[r * a.os[2] + 8 * n + frag_col(c)] =
-            from_f32<T>(acc[n][c] / l[c >> 1]);
+      if (r < S) o[r * a.os[2] + 8 * n + frag_col(c)] = acc[n][c] / l[c >> 1];
     }
 }
 
-template <typename T, int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + BQ - 1) / BQ));
-  attn_kernel<T, D><<<grid, kThreads, bytes, stream>>>(a);
+template <int D>
+int launch_tma(const Args& a, int B, cudaStream_t stream) {
+  AttnMaps maps;
+  int err = attn_map(&maps.q, a.q, D, a.S, a.H, B, a.qs);
+  if (err == 0) err = attn_map(&maps.k, a.k, D, a.S, a.Hkv, B, a.ks);
+  if (err == 0) err = attn_map(&maps.v, a.v, D, a.S, a.Hkv, B, a.vs);
+  if (err != 0) return err;
+  constexpr size_t bytes = smem_bytes_wg<D>();
+  constexpr int threads = WG_THREADS;
+  auto kernel = flash_attn_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  // persistent: as many blocks as the card holds at once, each walking the
+  // items i = blockIdx.x, blockIdx.x + gridDim.x, ...
+  int dev, sms, per_sm;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, bytes)) != cudaSuccess)
+    return (int)e;
+  const long long items = (long long)B * a.H * ((a.S + 63) / 64);
+  if (items > 0x7fffffffLL || per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long slots = (long long)sms * per_sm;
+  const int grid = (int)(items < slots ? items : slots);
+  kernel<<<grid, threads, bytes, stream>>>(maps, a, B, (int)items);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const Args& a, int B, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, B, stream);
-    case 32: return launch<T, 32>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
-    case 256: return launch<T, 256>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
+template <int D>
+int launch(const Args& a, int B, int dtype, cudaStream_t stream) {
+  if constexpr (D == 64 || D == 128) {
+    if (dtype == DT_BF16 && a.vec) return launch_tma<D>(a, B, stream);
   }
+  const bool bf = dtype == DT_BF16;
+  void (*kernel)(Args) =
+      bf ? flash_attn_bf16_kernel<D> : flash_attn_f32_kernel<D>;
+  const size_t bytes = bf ? smem_bytes_mma<D>() : smem_bytes_f32<D>();
+  const int bq = bf ? MQ : FQ;
+  if ((a.S + bq - 1) / bq > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + bq - 1) / bq));
+  kernel<<<grid, bf ? MTHREADS : FThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -231,13 +766,23 @@ extern "C" int flash_attention_launch(
     long long vss, long long osb, long long osh, long long oss, int causal,
     int window, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || (S + BQ - 1) / BQ > 65535 ||
-      window < 0)
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || window < 0 ||
+      (dtype != DT_BF16 && dtype != DT_F32))
     return (int)cudaErrorInvalidValue;
+  const long long strides[12] = {qsb, qsh, qss, ksb, ksh, kss,
+                                 vsb, vsh, vss, osb, osh, oss};
+  int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
   Args a{q, k, v, o, H, Hkv, S, causal, window, scale,
-         {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss}};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_BF16) return launch_d<__nv_bfloat16>(a, B, d, s);
-  if (dtype == DT_F32) return launch_d<float>(a, B, d, s);
-  return (int)cudaErrorInvalidValue;
+         {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
+         vec};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 16: return launch<16>(a, B, dtype, st);
+    case 32: return launch<32>(a, B, dtype, st);
+    case 64: return launch<64>(a, B, dtype, st);
+    case 128: return launch<128>(a, B, dtype, st);
+    case 256: return launch<256>(a, B, dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,18 +1,15 @@
-// Warp-level 16x8x16 tile product shared by the port's matrix kernels
+// Warp-level tile helpers shared by the port's matrix kernels
 // (fused_ffn.cu, flash_attention.cu).
 //
-// mma_tile<T>(acc, a, lda, b, bk, bn) adds A[16 x 16] * B[16 x 8] to the
-// warp's fp32 accumulator tile in the m16n8k16 fragment layout: with
-// lane = 4 * g + t, acc[0], acc[1] hold C[g][2t], C[g][2t + 1] and acc[2],
-// acc[3] hold C[g + 8][2t], C[g + 8][2t + 1].  A is row-major in shared
-// memory (element (r, k) at a[r * lda + k], lda even, a 4-byte aligned);
-// element (k, n) of B is at b[k * bk + n * bn], so one routine reads a
-// row-major weight tile (bk = ld, bn = 1) or a transposed key tile (bk = 1,
-// bn = ld).
+// bf16 route (tensor cores): 16-byte cp.async copies from device memory
+// into shared memory, ldmatrix loads of the m16n8k16 operand fragments
+// (.trans for an operand stored k-major, as a row-major weight or V tile),
+// and mma.sync with fp32 accumulation.  Fragment layout of the m16n8
+// accumulator: with lane = 4 * g + t, c[0], c[1] hold C[g][2t], C[g][2t+1]
+// and c[2], c[3] hold C[g + 8][2t], C[g + 8][2t + 1].
 //
-// bf16: one tensor-core mma.sync (fp32 accumulate).  fp32: the same tile
-// with scalar FMAs in full fp32, in the same fragment layout, so the
-// kernels' epilogues are shared; the fp32 route exists for checking against
+// fp32 route: mma_tile_f32 adds A[16 x 16] * B[16 x 8] with scalar FMAs in
+// full fp32, in the same accumulator layout; it exists for checking against
 // fp32 references, not for speed.
 #pragma once
 
@@ -22,78 +19,132 @@
 // dtype codes of the C entry points
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) |
-           ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  }
-  static __device__ __forceinline__ void run(float acc[4],
-                                             const __nv_bfloat16* a, int lda,
-                                             const __nv_bfloat16* b, int bk,
-                                             int bn) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    uint32_t a0 = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t);
-    uint32_t a1 =
-        *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t);
-    uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + g * lda + 2 * t + 8);
-    uint32_t a3 =
-        *reinterpret_cast<const uint32_t*>(a + (g + 8) * lda + 2 * t + 8);
-    uint32_t b0 = pack(b[(2 * t) * bk + g * bn], b[(2 * t + 1) * bk + g * bn]);
-    uint32_t b1 =
-        pack(b[(2 * t + 8) * bk + g * bn], b[(2 * t + 9) * bk + g * bn]);
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
-};
-
-template <> struct Mma<float> {
-  static __device__ __forceinline__ void run(float acc[4], const float* a,
-                                             int lda, const float* b, int bk,
-                                             int bn) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float x0 = a[g * lda + k], x1 = a[(g + 8) * lda + k];
-      const float y0 = b[k * bk + (2 * t) * bn];
-      const float y1 = b[k * bk + (2 * t + 1) * bn];
-      acc[0] = fmaf(x0, y0, acc[0]);
-      acc[1] = fmaf(x0, y1, acc[1]);
-      acc[2] = fmaf(x1, y0, acc[2]);
-      acc[3] = fmaf(x1, y1, acc[3]);
-    }
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ void mma_tile(float acc[4], const T* a, int lda,
-                                         const T* b, int bk, int bn) {
-  Mma<T>::run(acc, a, lda, b, bk, bn);
-}
-
-// row and column, inside the 16x8 tile, of accumulator element c (0..3)
+// row and column, inside the 16x8 accumulator tile, of element c (0..3)
 __device__ __forceinline__ int frag_row(int c) {
   return ((threadIdx.x & 31) >> 2) + (c >> 1) * 8;
 }
 __device__ __forceinline__ int frag_col(int c) {
   return 2 * (threadIdx.x & 3) + (c & 1);
+}
+
+// ---- bf16: cp.async, ldmatrix, mma.sync ------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared; src_bytes = 0 writes zeros (the source
+// address must still be a valid one)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices; lane i gives the shared address of row i % 8 of
+// matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Each lane's element offset, inside a 16 x 16 tile of leading dimension
+// ld, of the row it addresses for the fragment loads below; a kernel adds
+// it to a tile's shared address once and steps through tiles by constants.
+// A fragment (row-major A) and the k-major B fragments of two n8 tiles
+// (.trans) share one pattern; the n-major B fragments another.
+__device__ __forceinline__ int frag_off_a(int ld) {
+  const int lane = threadIdx.x & 31;
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int frag_off_b_nmajor(int ld) {
+  const int lane = threadIdx.x & 31;
+  return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
+}
+
+// A fragment (16 x 16, row-major at a[r * lda + k]) of rows 0..15, depth
+// 0..15 from a pointer at (row 0, k 0)
+__device__ __forceinline__ void load_a_frag(uint32_t r[4], const bf16* a,
+                                            int lda) {
+  ldmatrix_x4(r, smem_addr(a + frag_off_a(lda)));
+}
+
+// B fragments of two n8 tiles (n 0..7 and 8..15), depth 0..15, from a
+// k-major tile (element (k, n) at b[k * ldb + n], a row-major weight or V):
+// r[0], r[1] are tile 0's b0, b1 and r[2], r[3] tile 1's
+__device__ __forceinline__ void load_b_frag_kmajor(uint32_t r[4],
+                                                   const bf16* b, int ldb) {
+  ldmatrix_x4_trans(r, smem_addr(b + frag_off_a(ldb)));
+}
+
+// fast 2^x (one MUFU.EX2, flushing denormals; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- fp32: scalar tile ------------------------------------------------------
+
+// acc += A[16 x 16] * B[16 x 8]: A row-major (a[r * lda + k]), element
+// (k, n) of B at b[k * bk + n * bn]
+__device__ __forceinline__ void mma_tile_f32(float acc[4], const float* a,
+                                             int lda, const float* b, int bk,
+                                             int bn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float x0 = a[g * lda + k], x1 = a[(g + 8) * lda + k];
+    const float y0 = b[k * bk + (2 * t) * bn];
+    const float y1 = b[k * bk + (2 * t + 1) * bn];
+    acc[0] = fmaf(x0, y0, acc[0]);
+    acc[1] = fmaf(x0, y1, acc[1]);
+    acc[2] = fmaf(x1, y0, acc[2]);
+    acc[3] = fmaf(x1, y1, acc[3]);
+  }
 }

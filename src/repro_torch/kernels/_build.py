@@ -40,8 +40,7 @@ _SIGNATURES = {
         "rmsnorm_launch": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
     },
     "fused_ffn": {
-        "fused_ffn_splits": ([_I], _I),
-        # x, wg, wi, wo, out, partial, m, d, f, dtype, stream
+        # x, wg, wi, wo, h, out, m, d, f, dtype, stream
         "fused_ffn_launch": ([_P] * 6 + [_LL, _I, _I, _I, _P], _I),
     },
     "flash_attention": {

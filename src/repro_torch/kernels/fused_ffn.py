@@ -1,12 +1,13 @@
-"""Fused SwiGLU FFN (the port of the TPU kernel ``_ffn_kernel``).
+"""SwiGLU FFN (the port of the TPU kernel ``_ffn_kernel``).
 
-:func:`fused_swiglu` launches the hand-written CUDA kernel in
-``csrc/fused_ffn.cu``: a grid over (row tiles, d_ff tiles) whose blocks keep
-their ``silu(x @ Wg) * (x @ Wi)`` tile on chip and write an fp32 partial of
-the output, then a fixed-order sum of the partials.  It takes CUDA tensors
-only.  :func:`swiglu_plain` is its plain torch version, on any device.
-:func:`repro_torch.kernels.ops.swiglu` picks between them by the tensor's
-device.
+:func:`fused_swiglu` launches the hand-written CUDA kernels in
+``csrc/fused_ffn.cu``: a dual GEMM that writes the hidden activation
+``H = silu(x @ Wg) * (x @ Wi)`` in the compute dtype, then ``H @ Wo``, on
+tiles chosen by the number of rows.  It takes CUDA tensors only.
+:func:`swiglu_plain` is its plain torch version, split as the kernel is
+split (:func:`swiglu_hidden_plain`, then the product with ``Wo``), on any
+device.  :func:`repro_torch.kernels.ops.swiglu` picks between them by the
+tensor's device.
 """
 
 from __future__ import annotations
@@ -14,28 +15,37 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import swiglu_ref
 
-#: launches of the CUDA kernel in this process (added to once per launch
-#: and nowhere else; callers may reset it to 0)
+#: launches of the CUDA kernels in this process (added to once per call
+#: that launches them and nowhere else; callers may reset it to 0)
 launches = 0
+
+
+def swiglu_hidden_plain(x: torch.Tensor, wg: torch.Tensor,
+                        wi: torch.Tensor) -> torch.Tensor:
+    """``silu(x @ wg) * (x @ wi)`` in fp32, cast to ``x``'s dtype (the
+    hidden activation the first kernel writes); on any device."""
+    xf = x.float()
+    h = torch.nn.functional.silu(xf @ wg.float()) * (xf @ wi.float())
+    return h.to(x.dtype)
 
 
 def swiglu_plain(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                  wo: torch.Tensor) -> torch.Tensor:
-    """``(silu(x @ wg) * (x @ wi)) @ wo`` in fp32, cast back to ``x``'s
-    dtype; on any device."""
-    return swiglu_ref(x, wg, wi, wo)
+    """``(silu(x @ wg) * (x @ wi)) @ wo`` with the hidden activation held
+    in ``x``'s dtype, as the kernels hold it, and fp32 products, cast back
+    to ``x``'s dtype; on any device."""
+    h = swiglu_hidden_plain(x, wg, wi)
+    return (h.float() @ wo.float()).to(x.dtype)
 
 
 def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                  wo: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel over ``x`` ``[M, d]``, ``wg``/``wi`` ``[d, f]`` and
+    """The CUDA kernels over ``x`` ``[M, d]``, ``wg``/``wi`` ``[d, f]`` and
     ``wo`` ``[f, d]``: contiguous, of one dtype (fp32 or bf16), on one CUDA
-    device; any ``M``, ``d`` and ``f``.  Allocates the fp32 workspace of
-    ``ceil(f / 128) * M * d`` floats.  Raises ``ValueError`` on other
-    tensors and ``RuntimeError`` if the kernel cannot be built or
-    launched."""
+    device; any ``M``, ``d`` and ``f``.  Allocates the hidden activation
+    ``[M, f]`` in that dtype.  Raises ``ValueError`` on other tensors and
+    ``RuntimeError`` if the kernels cannot be built or launched."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"fused_swiglu expects x [M, d], got {list(x.shape)}")
@@ -53,12 +63,11 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     if m == 0:
         return out
     lib = _build.load("fused_ffn")
-    partial = torch.empty((lib.fused_ffn_splits(f), m, d),
-                          dtype=torch.float32, device=x.device)
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.fused_ffn_launch(
             x.data_ptr(), wg.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), m, d, f, code,
+            h.data_ptr(), out.data_ptr(), m, d, f, code,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

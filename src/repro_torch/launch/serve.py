@@ -30,6 +30,41 @@ from repro_torch.models.lm import check_decoder
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 
+def make_run(arch: str, smoke: bool, requests: int, prompt_len: int,
+             new_tokens: int, max_batch: int, seed: int, device):
+    """What :func:`main` serves for these flags: the config, its random
+    weights drawn from ``seed`` on ``device``, the seeded requests and the
+    serving config (the reference's defaults but for the batch and the
+    cache length)."""
+    cfg = get_config(arch, smoke=smoke)
+    check_decoder(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    values = param_values(lm_init(cfg, gen, device))
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab, prompt_len)
+                    .astype(np.int32),
+                    max_new_tokens=new_tokens)
+            for i in range(requests)]
+    scfg = ServeConfig(max_batch=max_batch,
+                       max_len=prompt_len + new_tokens + 8)
+    return cfg, values, reqs, scfg
+
+
+def group_stats(eng: ServeEngine) -> List[dict]:
+    """The engine's per-group stats with the prefill tokens and the decode
+    rate, as the ``group:`` lines print them."""
+    out = []
+    for st in eng.stats:
+        steps = st["decode_steps"]
+        out.append({**st, "prefill_tokens": st["batch"] * st["prompt_len"],
+                    "decode_tokens_per_s": (st["batch"] * steps
+                                            / st["decode_s"]
+                                            if steps else None)})
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", choices=ARCHS, default="tinyllama-1.1b")
@@ -48,38 +83,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("error: --device cuda needs a CUDA GPU and none is available; "
               "pass --device cpu to run on the CPU", file=sys.stderr)
         return 2
-    cfg = get_config(args.arch, smoke=args.smoke)
     try:
-        check_decoder(cfg)
+        cfg, values, reqs, scfg = make_run(
+            args.arch, args.smoke, args.requests, args.prompt_len,
+            args.new_tokens, args.max_batch, args.seed, args.device)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-
-    device = torch.device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    values = param_values(lm_init(cfg, gen, device))
-    rng = np.random.default_rng(args.seed)
-    scfg = ServeConfig(max_batch=args.max_batch,
-                       max_len=args.prompt_len + args.new_tokens + 8)
     eng = ServeEngine(cfg, values, scfg)
     del values  # the engine holds its compute-dtype copy
 
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab, args.prompt_len)
-                    .astype(np.int32),
-                    max_new_tokens=args.new_tokens)
-            for i in range(args.requests)]
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     dt = time.perf_counter() - t0
     for rid in sorted(outs):
         print(f"req {rid}: {outs[rid]}")
-    for st in eng.stats:
-        steps = st["decode_steps"]
-        print("group: " + json.dumps({
-            **st, "prefill_tokens": st["batch"] * st["prompt_len"],
-            "decode_tokens_per_s": (st["batch"] * steps / st["decode_s"]
-                                    if steps else None)}))
+    for st in group_stats(eng):
+        print("group: " + json.dumps(st))
     total = args.requests * args.new_tokens
     print(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
           f"batch {args.max_batch})")

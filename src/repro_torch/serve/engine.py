@@ -14,11 +14,13 @@ What differs from the reference, none of it in the tokens:
   only, the one row the reference reads (``last_only``), and tells the
   model the caches are empty (``prefill``), which lets attention take the
   flash-attention kernel;
-* the chosen tokens cross to the host once per step (``tolist``);
-* the cache dtype defaults to the model's compute dtype (the reference
-  defaults to float32, which promotes a bf16 model's residual stream to
-  fp32 after the first attention layer; pass ``cache_dtype=torch.float32``
-  for that behaviour).
+* the chosen tokens cross to the host once per step (``tolist``).
+
+The cache dtype defaults to float32, as the reference's does.  For a bf16
+model that promotes the attention output, and from the first layer on the
+residual stream, to fp32 (the port mirrors jnp's promotion), so the
+default serves what the reference serves; ``cache_dtype=torch.bfloat16``
+keeps the whole forward in bf16.
 
 ``stats`` records, per group, the time to the first tokens on the host
 (``ttft_s``, cache allocation included), the prefill forward's share of it
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -53,7 +55,7 @@ class Request:
 class ServeConfig:
     max_batch: int = 8
     max_len: int = 512
-    cache_dtype: Optional[torch.dtype] = None  # None: the compute dtype
+    cache_dtype: torch.dtype = torch.float32  # the reference's default
     greedy: bool = True
 
 
@@ -70,7 +72,7 @@ class ServeEngine:
         self.values = {k: (v if k == "final_norm" else tree_cast(v, cdtype))
                        for k, v in values.items()}
         self.device = values["embed"].device
-        self.cache_dtype = scfg.cache_dtype or cdtype
+        self.cache_dtype = scfg.cache_dtype
         self.stats: List[Dict[str, Any]] = []
 
     def _generate_group(self, group: List[Request]) -> None:

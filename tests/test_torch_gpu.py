@@ -9,6 +9,8 @@ machine without them:
 * every CUDA kernel against its plain version at the serving path's shapes
   and at ragged ones, in bf16 and fp32 (``chip_smoke.py``'s phase, with its
   tolerances);
+* B3 and B2 across their tile edges, and both on inputs whose rows do not
+  allow TMA or 16-byte copies;
 * the smoke tinyllama served through the CUDA kernels and through their
   plain versions on the CPU gives the same greedy tokens, with each kernel
   launched as often as the model's structure implies.
@@ -39,6 +41,90 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
 
     errs = chip_smoke.phase_lm_kernels_vs_plain()
     assert {name for name, _ in errs} == set(chip_smoke.LM_KERNELS)
+
+
+BF16_TOL = 2e-2
+
+
+def _close(got, want):
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 63, 64, 65, 128, 129, 300])
+def test_ffn_at_its_tile_edges(m):
+    """Both tile kinds: 16-row tiles up to M = 16, 128 x 128 TMA tiles
+    above, across their edges."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    d, f = 256, 704  # several 128-column tiles of each product
+    x, wg, wi = rnd(m, d), rnd(d, f, scale=d ** -0.5), rnd(
+        d, f, scale=d ** -0.5)
+    wo = rnd(f, d, scale=f ** -0.5)
+    assert _close(ff.fused_swiglu(x, wg, wi, wo),
+                  ff.swiglu_plain(x, wg, wi, wo))
+
+
+@pytest.mark.gpu
+def test_ffn_without_16_byte_rows():
+    """d and f not multiples of 8, and x one element off 16-byte alignment:
+    no TMA or 16-byte copies, element loads into the small tiles at any
+    M."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m, d, f, off in ((77, 200, 300, 0), (9, 64, 96, 1), (200, 64, 96, 1)):
+        x = torch.empty(m * d + off, dtype=torch.bfloat16,
+                        device="cuda")[off:].view(m, d)
+        x.copy_(torch.randn((m, d), generator=g, device="cuda"))
+        wg, wi = (torch.randn((d, f), generator=g, device="cuda")
+                  .mul(d ** -0.5).to(torch.bfloat16) for _ in range(2))
+        wo = torch.randn((f, d), generator=g, device="cuda").mul(
+            f ** -0.5).to(torch.bfloat16)
+        assert _close(ff.fused_swiglu(x, wg, wi, wo),
+                      ff.swiglu_plain(x, wg, wi, wo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 257])
+def test_flash_attention_tile_edges(s, window):
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(s + window)
+    for d, h, hkv in ((64, 16, 2), (128, 4, 1), (256, 2, 2), (16, 8, 8)):
+        q, k, v = (torch.randn((2, s, n, d), generator=g, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n in (h, hkv, hkv))
+        assert _close(fa.flash_attention(q, k, v, window=window),
+                      fa.attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,width", [(16, 20), (64, 68)])
+def test_flash_attention_without_16_byte_rows(d, width):
+    """Rows ``width`` elements apart (heads sliced out of a wider tensor):
+    no TMA or 16-byte copies, element loads into the mma.sync route's
+    tiles."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn((1, 2, 150, width), generator=g, device="cuda")
+               .to(torch.bfloat16)[..., :d] for _ in range(3))
+    assert q.stride(2) == width
+    assert _close(fa.flash_attention(q, k, v),
+                  fa.attention_plain(q, k, v))
 
 
 @pytest.mark.gpu

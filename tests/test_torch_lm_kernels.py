@@ -23,6 +23,7 @@ from test_kernels import ATTN_SWEEP, FFN_SWEEP  # noqa: E402
 from repro.kernels import flash_attention, fused_rmsnorm, fused_swiglu  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.layers import _attend as jax_attend  # noqa: E402
+from repro_torch.kernels import fused_ffn as tffn  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -81,6 +82,34 @@ def test_swiglu_matches_reference_and_pallas(case, dtype):
                                f32(want), **TOL[dtype])
     np.testing.assert_allclose(f32(ops.swiglu(tx, tg, ti, to)), f32(pallas),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FFN_SWEEP)
+def test_swiglu_split_matches_reference_and_pallas(case, dtype):
+    """B3's plain version split as its kernels are split: the hidden
+    activation in the compute dtype, then its product with Wo."""
+    M, d, f, bm, bf = case
+    jx, tx = both(rand((M, d), 31), dtype)
+    (jg, tg), (ji, ti) = (both(rand((d, f), s, d ** -0.5), dtype)
+                          for s in (32, 33))
+    jo, to = both(rand((f, d), 34, f ** -0.5), dtype)
+    h = tffn.swiglu_hidden_plain(tx, tg, ti)
+    assert h.dtype == tx.dtype and h.shape == (M, f)
+    got = (h.float() @ to.float()).to(tx.dtype)
+    np.testing.assert_array_equal(f32(got), f32(tffn.swiglu_plain(tx, tg, ti,
+                                                                   to)))
+    np.testing.assert_allclose(f32(got), f32(jref.swiglu_ref(jx, jg, ji, jo)),
+                               **TOL[dtype])
+    pallas = fused_swiglu(jx, jg, ji, jo, block_m=bm, block_f=bf,
+                          interpret=True)
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+
+
+def test_fused_swiglu_refuses_cpu_tensors():
+    x, w = torch.zeros((4, 8)), torch.zeros((8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tffn.fused_swiglu(x, w, w, w)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

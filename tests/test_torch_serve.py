@@ -57,6 +57,60 @@ def test_greedy_tokens_equal_the_jax_engine(case):
     assert all(s["decode_steps"] == new - 1 for s in eng.stats)
 
 
+def test_default_engine_equals_the_jax_default_engine_in_bf16(monkeypatch):
+    """At their defaults both engines keep an fp32 cache, which promotes a
+    bf16 model's residual stream to fp32 after the first attention layer:
+    the same prefill logits (within bf16's 2e-2) and the same greedy
+    tokens on the bf16 tinyllama smoke config.
+
+    The reference scans its layers, and ``lax.scan`` refuses a carry whose
+    dtype the fp32 cache changes (bf16 in, fp32 out: a TypeError), so here
+    it runs every layer unrolled (its ``_layer_groups`` returns all layers
+    as the unrolled prefix), which is the same function; its parameters are
+    restacked for the port's scanned layout."""
+    import jax.numpy as jnp
+
+    import repro.models.lm as jax_lm
+    from repro.models import init_caches as jax_init_caches
+    from repro_torch.models import init_caches, lm_apply
+
+    monkeypatch.setattr(jax_lm, "_layer_groups",
+                        lambda c: (c.n_layers, 0, 0, 0))
+    jcfg = jax_get_config("tinyllama-1.1b", smoke=True).with_(
+        compute_dtype="bfloat16")
+    cfg = get_config("tinyllama-1.1b", smoke=True).with_(
+        compute_dtype="bfloat16")
+    jvals = jax_param_values(jax_lm_init(jax.random.PRNGKey(0), jcfg))
+    tree = jax.tree.map(np.asarray, jvals)
+    layers = [tree["pre"][f"q{j}"] for j in range(cfg.n_layers)]
+    tree = {**{k: v for k, v in tree.items() if k != "pre"}, "pre": {},
+            "scan": {"p0": jax.tree.map(lambda *a: np.stack(a), *layers)},
+            "rest": {}}
+    prompts = np.random.default_rng(5).integers(
+        0, jcfg.vocab, (2, 11)).astype(np.int32)
+    jscfg = JaxServeConfig(max_batch=2, max_len=32)
+    scfg = ServeConfig(max_batch=2, max_len=32)
+    assert jscfg.cache_dtype == jnp.float32
+    assert scfg.cache_dtype is torch.float32
+    jeng = JaxServeEngine(jcfg, jvals, jscfg)
+    eng = ServeEngine(cfg, lm_params_from_reference(tree), scfg)
+
+    jcaches = jax_init_caches(jcfg, 2, 32, jscfg.cache_dtype)
+    caches = init_caches(cfg, 2, 32, eng.cache_dtype)
+    assert caches["scan"]["p0"]["k"].dtype == torch.float32
+    want, _ = jeng._prefill(jeng.values, jcaches, jnp.asarray(prompts))
+    got, _, _ = lm_apply(eng.values, cfg, torch.from_numpy(
+        prompts.astype(np.int64)), caches=caches, prefill=True,
+        last_only=True)
+    np.testing.assert_allclose(got[:, -1].float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+    assert eng.generate([Request(rid=i, prompt=p, max_new_tokens=6)
+                         for i, p in enumerate(prompts)]) == jeng.generate(
+        [JaxRequest(rid=i, prompt=p, max_new_tokens=6)
+         for i, p in enumerate(prompts)])
+
+
 def test_cli_serves_on_the_cpu(capsys):
     assert main(["--device", "cpu", "--smoke", "--requests", "3",
                  "--prompt-len", "9", "--new-tokens", "4",
