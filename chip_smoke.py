@@ -10,7 +10,9 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
 ``nvcc`` each, all at once) and drives both paths of the port:
 
 * the planner: the streaming-block kernel bit for bit against its plain
-  torch version, the JAX package's golden artifacts reproduced with the
+  torch version, on card tensors and as a planner batch from NumPy to
+  NumPy (zero copy: the kernel reads and writes pinned host memory), the
+  JAX package's golden artifacts reproduced with the
   ``torch`` executor on the card, and the planner at the paper's
   co-exploration settings on the real ResNet-50 netlist through the CLI
   entry point, byte-equal to the ``vector`` backend's result;
@@ -22,6 +24,12 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   at its defaults (fp32 cache) on a short run, each with every kernel's
   launches held to the count the model's structure implies; and an fp32
   forward and greedy decode on the card against the same on the CPU.
+
+Last it times every kernel beside its plain version, its bound and the
+library call where one computes the same function; a call that moves
+more than a few MB is also timed over enough input sets to exceed twice
+the L2, so that it reads from device memory, and the planner's batch is
+timed from NumPy to NumPy beside the host link's measured rate.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the script
@@ -94,9 +102,16 @@ LM_KERNELS = {
 PEAK_BF16_OPS_PER_S = 989e12
 # tests/test_kernels.py's tolerances, by dtype
 LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# kernel-against-plain shapes: the serving path's (8 x 512 and 4 x 200
-# prefill, batch-8 decode) at tinyllama-1.1b's width, and ragged ones
-RMS_CASES = ((4096, 2048), (800, 2048), (8, 2048), (4095, 2048), (3, 200))
+# B4's kernel-against-plain cases, (M, d, x's storage offset in elements):
+# the serving path's shapes (8 x 512 and 4 x 200 prefill, batch-8 decode)
+# at tinyllama-1.1b's width, ragged ones, qk-norm's head widths, and both
+# routes: 16-byte units (rows held in registers, or read twice past 2,048
+# units a row) and single elements (d * itemsize % 16 != 0, or x one
+# element off a 16-byte boundary)
+RMS_CASES = ((4096, 2048, 0), (800, 2048, 0), (8, 2048, 0), (4095, 2048, 0),
+             (3, 200, 0), (4096, 64, 0), (4096, 128, 0), (300, 256, 0),
+             (8, 5632, 0), (4, 20000, 0), (5, 2047, 0), (800, 2048, 1),
+             (8, 5632, 1))
 # B3 at M on both sides of the small/large-M tile threshold (16) and of
 # the large tiles' 128 rows, the prefill and decode shapes, and a ragged
 # shape (no TMA: the small tiles at any M)
@@ -219,6 +234,49 @@ def phase_kernel_vs_plain() -> float:
                                  device="cuda")
     if len(empty) != 9 or any(len(a) for a in empty):
         raise AssertionError("an empty batch must give 9 empty arrays")
+    return max(max_err, _batches_vs_plain())
+
+
+def _as_args(lanes: np.ndarray) -> tuple:
+    """``[7, n]`` int64 lanes -> the seven arrays ``finish_cost_batch``
+    takes (the masks as bool)."""
+    fp, w_total, single, glb, wbuf, shared, share = lanes
+    return (fp, w_total, single.astype(bool), glb, wbuf, shared.astype(bool),
+            share)
+
+
+def _batches_vs_plain() -> int:
+    """``finish_cost_batch`` from NumPy to NumPy on the card (zero copy),
+    bitwise against the plain version on the CPU: at one lane, the
+    planner's batch size, either side of the staging buffers' first size
+    (1,024 lanes; the next batch grows them), a million lanes and the
+    guard-boundary lanes; and two successive batches' results do not
+    share memory."""
+    from repro_torch.kernels import finish_batch as fb
+
+    cases = [(n, make_lanes(n, seed=n)) for n in (1, 185, 1024, 1025,
+                                                 1 << 20)]
+    cases.append(("guard", guard_lanes()))
+    max_err = 0
+    for n, lanes in cases:
+        args = _as_args(lanes)
+        want = fb.finish_cost_batch(*args, device="cpu")
+        got = fb.finish_cost_batch(*args, device="cuda")
+        equal = all(g.dtype == w.dtype and np.array_equal(g, w)
+                    for g, w in zip(got, want))
+        err = max(int(np.abs(g.astype(np.int64) - w.astype(np.int64))
+                      .max()) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        emit({"phase": "kernel_vs_plain", "via": "finish_cost_batch",
+              "n": n if n != "guard" else lanes.shape[1],
+              "guard_lanes": n == "guard", "bitwise_equal": equal,
+              "max_abs_err": err})
+        if not equal:
+            raise AssertionError(f"finish_cost_batch != plain at n={n}")
+    first = fb.finish_cost_batch(*_as_args(make_lanes(185, seed=5)))
+    second = fb.finish_cost_batch(*_as_args(make_lanes(185, seed=6)))
+    if any(np.shares_memory(a, b) for a in first for b in second):
+        raise AssertionError("two batches' results share memory")
     return max_err
 
 
@@ -331,7 +389,8 @@ def phase_full_run() -> dict:
     byte_equal = res.to_json(indent=2) == out_vector.read_text()
     c = rec.counters
     batches = c.get("engine.array_batches", 0)
-    kernel_ms = c.get("kernel.finish_batch.kernel_ms", 0.0)
+    # the zero-copy launches, the host link's crossing included
+    zero_copy_ms = c.get("kernel.finish_batch.zero_copy_ms", 0.0)
     out = {
         "phase": "full_run", "args": list(FULL_RUN),
         "budget_cut": None,
@@ -342,10 +401,8 @@ def phase_full_run() -> dict:
         "array_batches": batches,
         "scalar_fallback": c.get("engine.scalar_fallback", 0),
         "mean_batch_lanes": c.get("engine.array_lanes", 0) / max(batches, 1),
-        "kernel_ms": kernel_ms,
-        "kernel_share_of_wall": kernel_ms / 1e3 / wall,
-        "h2d_ms": c.get("kernel.finish_batch.h2d_ms", 0.0),
-        "d2h_ms": c.get("kernel.finish_batch.d2h_ms", 0.0),
+        "zero_copy_ms": zero_copy_ms,
+        "zero_copy_share_of_wall": zero_copy_ms / 1e3 / wall,
         "structure_derive_s": c.get("evaluator.structure_derive_s", 0.0),
         "structure_misses": c.get("evaluator.structure_misses", 0),
         **activity,
@@ -364,31 +421,78 @@ def phase_full_run() -> dict:
     return out
 
 
-def _events_ms(fn, reps: int) -> float:
+def _events_ms(fn, reps: int, sets=((),)) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` back-to-back
-    calls on the current stream, after a warm-up, from CUDA events."""
+    calls on the current stream, after a warm-up, from CUDA events.  Call
+    ``i`` takes the arguments ``sets[i % len(sets)]``; with more than one
+    set, the last ``len(sets)`` outputs are kept alive, so that outputs
+    rotate through fresh memory as the inputs do."""
     import torch
 
-    for _ in range(3):
-        fn()
+    keep = [None] * len(sets) if len(sets) > 1 else None
+    for i in range(max(3, len(sets))):
+        out = fn(*sets[i % len(sets)])
+        if keep:
+            keep[i % len(keep)] = out
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        out = fn(*sets[i % len(sets)])
+        if keep:
+            keep[i % len(keep)] = out
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(n: int) -> dict:
-    """The kernel and its plain version at ``n`` lanes on the card."""
+def _host_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the host clock, after a
+    warm-up; for calls that end by waiting for the card."""
+    for _ in range(3):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _link_rates() -> dict:
+    """Host-to-device and device-to-host rates of the host link in bytes/s,
+    from one 256 MiB copy each way between pinned host memory and the card
+    (CUDA events, after a warm-up copy)."""
+    import torch
+
+    nbytes = 256 << 20
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        rates[name] = nbytes / (start.elapsed_time(end) / 1e3)
+    return rates
+
+
+def phase_timing(n: int, link: dict) -> dict:
+    """The kernel and its plain version at ``n`` lanes on the card; and the
+    round trip of a batch, ``finish_cost_batch`` from NumPy to NumPy (zero
+    copy), beside its bound: the bytes the function takes and gives
+    (:data:`LANE_BYTES` a lane, 42 in and 44 out) over the host link's
+    rates in ``link``."""
     import torch
 
     from repro_torch.kernels import finish_batch as fb
 
-    lanes = torch.from_numpy(make_lanes(n, seed=1)).cuda()
+    lanes_np = make_lanes(n, seed=1)
+    lanes = torch.from_numpy(lanes_np).cuda()
     reps = 2000 if n < 100_000 else 50
     ms = _events_ms(lambda: fb.finish_lanes(lanes), reps)
     plain_ms = _events_ms(lambda: fb.finish_lanes_plain(lanes), reps)
@@ -396,9 +500,16 @@ def phase_timing(n: int) -> dict:
                              ("finish_batch_kernel",))
     bytes_s = n * LANE_BYTES / HBM_BYTES_PER_S
     ops_s = n * LANE_OPS / PEAK_SCALAR_OPS_PER_S
+    args = _as_args(lanes_np)
+    roundtrip = _host_ms(lambda: fb.finish_cost_batch(*args),
+                         2000 if n < 100_000 else 10)
     out = {"phase": "timing", "n": n, "ms": ms, "device_ms": device_ms,
            "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
-           "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+           "roundtrip_ms": roundtrip,
+           "roundtrip_bound_ms": (42 * n / link["h2d"]
+                                  + 44 * n / link["d2h"]) * 1e3,
+           "link_bytes_per_s": link}
     emit(out)
     return out
 
@@ -673,8 +784,14 @@ def _randn(shape, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-def _rms_inputs(m, d, dtype, seed):
-    return (_randn((m, d), dtype, seed), _randn((d,), dtype, seed + 1))
+def _rms_inputs(m, d, dtype, seed, offset=0):
+    """x ``[M, d]`` (``offset`` elements into its storage) and scale
+    ``[d]``."""
+    import torch
+
+    x = torch.empty(m * d + offset, dtype=dtype, device="cuda")[offset:]
+    x = x.view(m, d).copy_(_randn((m, d), dtype, seed))
+    return x, _randn((d,), dtype, seed + 1)
 
 
 def _ffn_inputs(m, d, f, dtype, seed):
@@ -702,9 +819,13 @@ def _lm_calls():
     from repro_torch.kernels import rmsnorm as rn
 
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (m, d) in enumerate(RMS_CASES):
-            args = _rms_inputs(m, d, dtype, 10 + i)
-            yield ("rmsnorm", {"m": m, "d": d}, dtype,
+        for i, (m, d, off) in enumerate(RMS_CASES):
+            args = _rms_inputs(m, d, dtype, 10 + i, off)
+            vec = rn.vector_route(args[0].data_ptr(), args[1].data_ptr(), 0,
+                                  d, dtype.itemsize)
+            yield ("rmsnorm", {"m": m, "d": d, "offset": off,
+                               "route": "vector" if vec else "scalar"},
+                   dtype,
                    lambda a=args: rn.fused_rmsnorm(*a),
                    lambda a=args: rn.rmsnorm_plain(*a))
         for i, (m, d, f) in enumerate(FFN_CASES):
@@ -772,22 +893,30 @@ def phase_lm_kernels_vs_plain() -> dict:
     return errs
 
 
-def _profiled_ms(fn, reps: int, names=("",)) -> "float | None":
+def _profiled_ms(fn, reps: int, names=("",), sets=((),)) -> "float | None":
     """Device time per call of the device kernels whose names contain one
     of ``names`` (every device kernel by default), from ``torch.profiler``:
     each kernel's mean duration times its launches per call.  (The trace
     can miss a few launches of a run, so the sum over the run divided by
-    ``reps`` would undercount.)  ``None`` when the profiler shows no device
+    ``reps`` would undercount.)  Arguments and outputs rotate over ``sets``
+    as in :func:`_events_ms`.  ``None`` when the profiler shows no device
     time for them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    keep = [None] * len(sets) if len(sets) > 1 else None
+    for i in range(len(sets)):
+        out = fn(*sets[i])
+        if keep:
+            keep[i] = out
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            out = fn(*sets[i % len(sets)])
+            if keep:
+                keep[i % len(keep)] = out
         torch.cuda.synchronize()
     per_name: dict = {}
     for e in prof.events():
@@ -801,27 +930,60 @@ def _profiled_ms(fn, reps: int, names=("",)) -> "float | None":
     return total_us / 1e3 if total_us > 0 else None
 
 
-def _timing_row(lib, shape, kernel, plain, library, nbytes, ops, reps,
+# the H100's L2 cache; a timed row whose call moves at least COLD_MIN_BYTES
+# is also timed on operands that are not L2-resident
+L2_BYTES = 50 << 20
+COLD_MIN_BYTES = 4 << 20
+
+
+def _timing_row(lib, shape, make, kernel, plain, library, nbytes, ops, reps,
                 dtype="bfloat16", composite=None) -> dict:
     """Times of one kernel at one shape: between CUDA events back to back,
     device time from the profiler, its plain version, the library call
     (events, and its kernels' device time) and a composite of library calls
     (a yardstick where no single call computes the function); the bound
     from the bytes the function must move and its operations at the tensor
-    cores' bf16 rate (fp32: the rate outside the tensor cores)."""
-    ms = _events_ms(kernel, reps)
-    device_ms = _profiled_ms(kernel, reps, LM_KERNELS[lib][2])
-    plain_ms = _events_ms(plain, max(reps // 4, 3))
-    library_ms = _events_ms(library, reps) if library else None
-    library_device_ms = _profiled_ms(library, reps) if library else None
-    composite_ms = _events_ms(composite, reps) if composite else None
+    cores' bf16 rate (fp32: the rate outside the tensor cores).
+
+    ``make(i)`` builds the ``i``-th set of inputs, which ``kernel``,
+    ``plain``, ``library`` and ``composite`` take as arguments.  Where a
+    call moves at least :data:`COLD_MIN_BYTES`, the kernel, library and
+    composite are timed over enough input sets (their outputs kept as
+    long) to exceed twice the L2, so that every call reads its operands
+    from device memory; those figures are the row's ``ms``,
+    ``device_ms``, ``library_ms``, ``library_device_ms`` and
+    ``composite_ms``, and the back-to-back figures on one set are kept as
+    the same names with ``_hot`` (the only figures of a smaller row)."""
+    names = LM_KERNELS[lib][2]
+
+    def times(sets):
+        return {
+            "ms": _events_ms(kernel, reps, sets),
+            "device_ms": _profiled_ms(kernel, reps, names, sets),
+            "library_ms": _events_ms(library, reps, sets) if library
+            else None,
+            "library_device_ms": _profiled_ms(library, reps, sets=sets)
+            if library else None,
+            "composite_ms": _events_ms(composite, reps, sets) if composite
+            else None,
+        }
+
+    first = make(0)
+    hot = times((first,))
+    cold_sets = 0
+    if nbytes >= COLD_MIN_BYTES:
+        cold_sets = -(-2 * L2_BYTES // nbytes) + 1
+        cold = times((first,) + tuple(make(i) for i in range(1, cold_sets)))
+    else:
+        cold = hot
+    plain_ms = _events_ms(plain, max(reps // 4, 3), (first,))
     bytes_s = nbytes / HBM_BYTES_PER_S
     ops_s = ops / (PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
                    else PEAK_SCALAR_OPS_PER_S)
     row = {"phase": "lm_timing", "kernel": lib, **shape, "dtype": dtype,
-           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library_device_ms": library_device_ms,
-           "composite_ms": composite_ms,
+           **cold, "plain_ms": plain_ms,
+           "l2_cold": cold_sets > 0, "cold_sets": cold_sets,
+           **{f"{k}_hot": v for k, v in hot.items()},
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "bytes": nbytes, "ops": ops}
@@ -836,7 +998,8 @@ def phase_lm_timing() -> dict:
     fp32 cache).  The library calls (``F.scaled_dot_product_attention`` with
     GQA, ``F.rms_norm``) and B3's composite (three bf16 ``torch.matmul``s
     and ``F.silu(g) * u``) are timed here only; the port never calls them.
-    Returns the 8 x 512 prefill row of each kernel, with B3's decode row."""
+    Returns the 8 x 512 prefill row of each kernel, with B3's and B4's
+    decode rows."""
     import torch
     import torch.nn.functional as F
 
@@ -846,26 +1009,28 @@ def phase_lm_timing() -> dict:
 
     bf16, rows = torch.bfloat16, {}
     for m in (4096, 8):
-        x, s = _rms_inputs(m, 2048, bf16, 1)
         row = _timing_row(
             "rmsnorm", {"m": m, "d": 2048},
-            lambda: rn.fused_rmsnorm(x, s), lambda: rn.rmsnorm_plain(x, s),
-            lambda: F.rms_norm(x, (2048,), s, 1e-5),
+            lambda i, m=m: _rms_inputs(m, 2048, bf16, 1 + 2 * i),
+            rn.fused_rmsnorm, rn.rmsnorm_plain,
+            lambda x, s: F.rms_norm(x, (2048,), s, 1e-5),
             nbytes=(2 * m * 2048 + 2048) * 2, ops=0, reps=200)
         rows.setdefault("rmsnorm", row)
+        if m == 8:
+            rows["rmsnorm_decode"] = row
     d, f = 2048, 5632
+
+    def composite(x, wg, wi, wo):
+        return (F.silu(x @ wg) * (x @ wi)) @ wo
+
     for dtype in (bf16, torch.float32):
         tname = str(dtype).removeprefix("torch.")
         for m in ((4096, 800, 8, 4) if dtype == bf16 else (4096, 8)):
-            x, wg, wi, wo = _ffn_inputs(m, d, f, dtype, 2)
-
-            def composite(x=x, wg=wg, wi=wi, wo=wo):
-                return (F.silu(x @ wg) * (x @ wi)) @ wo
-
             row = _timing_row(
                 "fused_ffn", {"m": m, "d": d, "f": f},
-                lambda: ff.fused_swiglu(x, wg, wi, wo),
-                lambda: ff.swiglu_plain(x, wg, wi, wo), None,
+                lambda i, m=m, dtype=dtype: _ffn_inputs(m, d, f, dtype,
+                                                        2 + 4 * i),
+                ff.fused_swiglu, ff.swiglu_plain, None,
                 nbytes=(2 * m * d + 3 * d * f) * dtype.itemsize,
                 ops=6 * m * d * f, reps=(20 if m > 8 else 200)
                 if dtype == bf16 else (3 if m > 8 else 20),
@@ -876,15 +1041,15 @@ def phase_lm_timing() -> dict:
                     rows["fused_ffn_decode"] = row
     for b, s_len in ((8, 512), (4, 200)):
         h, hkv, hd = 32, 4, 64
-        q, k, v = _attn_inputs(b, h, hkv, s_len, hd, bf16, 3)
         live_pairs = b * h * s_len * (s_len + 1) // 2  # causal
         row = _timing_row(
             "flash_attention",
             {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd, "causal": True},
-            lambda: fa.flash_attention(q, k, v),
-            lambda: fa.attention_plain(q, k, v),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
+            lambda i, b=b, s_len=s_len: _attn_inputs(b, h, hkv, s_len, hd,
+                                                     bf16, 3 + 3 * i),
+            fa.flash_attention, fa.attention_plain,
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
             nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
             ops=4 * hd * live_pairs, reps=100)
         rows.setdefault("flash_attention", row)
@@ -929,8 +1094,9 @@ def main(argv=None) -> int:
     full = phase_full_run() if run("full_run") else None
     if run("timing"):
         main_n = max(1, round(full["mean_batch_lanes"])) if full else 185
-        timing = phase_timing(main_n)
-        phase_timing(1 << 20)
+        link = _link_rates()
+        timing = phase_timing(main_n, link)
+        large = phase_timing(1 << 20, link)
     lm_errs = phase_lm_kernels_vs_plain() if run("lm_kernels_vs_plain") \
         else None
     serve = phase_serve() if run("serve") else None
@@ -956,6 +1122,9 @@ def main(argv=None) -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "roundtrip": {t["n"]: {k: t[k] for k in (
+            "roundtrip_ms", "roundtrip_bound_ms")} for t in (timing, large)},
+        "link_bytes_per_s": timing["link_bytes_per_s"],
     }]
     for lib, (name, replaces, _) in LM_KERNELS.items():
         row = lm_rows[lib]
@@ -975,13 +1144,19 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
             "composite_ms": row["composite_ms"],
+            "l2_cold": row["l2_cold"],
+            "hot": {k: row[f"{k}_hot"] for k in (
+                "ms", "device_ms", "library_ms", "library_device_ms",
+                "composite_ms")},
         })
-        if lib == "fused_ffn":
-            dec = lm_rows["fused_ffn_decode"]
+        if f"{lib}_decode" in lm_rows:
+            dec = lm_rows[f"{lib}_decode"]
             kernels[-1]["decode"] = {k: dec[k] for k in (
-                "m", "ms", "device_ms", "plain_ms", "composite_ms",
-                "bound_ms", "bound_by")}
+                "m", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "composite_ms", "bound_ms",
+                "bound_by")}
     emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Time tile-shape variants of the port's B2 and B3 CUDA kernels on one GPU.
+"""Time tile-shape variants of the port's B2, B3 and B4 CUDA kernels on one
+GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 scripts/kernel_variants.py [--only ffn|attn]
+    python3 scripts/kernel_variants.py [--only ffn|attn|rms]
 
 Each variant is the kernel's source in ``src/repro_torch/csrc/`` with a
 few lines replaced (``fused_ffn.cu``: its M threshold and stages;
-``flash_attention.cu``: the TMA route's stages and blocks, and probes),
-built with the port's nvcc flags into ``build/variants/`` (all variants at
-once) and called through the port's own wrapper.  Every variant is checked
-against the plain torch version (bf16 tolerance 2e-2) before it is timed
-(CUDA events back to back, and device time from ``torch.profiler``) at the
+``flash_attention.cu``: the TMA route's stages and blocks, and probes;
+``rmsnorm.cu``: threads a row, a persistent grid, and probes), built with
+the port's nvcc flags into ``build/variants/`` (all variants at once) and
+called through the port's own wrapper.  Every variant is checked against
+the plain torch version (bf16 tolerance 2e-2) before it is timed (CUDA
+events back to back, and device time from ``torch.profiler``) at the
 serving shapes of tinyllama-1.1b; probes (``probe_*``, one part of the loop
-removed) are timed though wrong, to show what each part costs.  The library
-yardsticks (``F.scaled_dot_product_attention`` with GQA, three bf16
-``torch.matmul``s for SwiGLU) are timed in the same process.  One JSON
-line per variant; the first line names the card and its power limit.
+removed) are timed though wrong, to show what each part costs.  B4's
+shapes that move more than a few MB are timed over enough input sets to
+exceed twice the 50 MB L2, so that every call reads from device memory.
+The library yardsticks (``F.scaled_dot_product_attention`` with GQA, three
+bf16 ``torch.matmul``s for SwiGLU, ``F.rms_norm``, and for B4 a device copy
+of x, the bytes it moves without the arithmetic) are timed in the same
+process.  One JSON line per variant; the first line names the card and its
+power limit.
 """
 
 from __future__ import annotations
@@ -61,10 +67,73 @@ ATTN_VARIANTS = {
                        "      if (false) {"),),
 }
 
+# B4: threads a row (the repo's choice holds a row of d 2048 in bf16 in one
+# 16-byte unit a thread, 256 threads; more units a thread give fewer
+# threads a row and more rows a block), rows a thread at once (at M >=
+# 1024), a persistent grid of k blocks an SM looping over row groups (the
+# loop and the grid's cap patched in), a cap on registers for 6 or 8 blocks
+# an SM, and probes without the scale or the reduction
+_RMS_ROWS = "constexpr int kRowsPerThread = 2;"
+_RMS_BOUNDS = "__global__ void __launch_bounds__(kThreads)\nrmsnorm_kernel"
+
+
+def _rms(units=None, rows=None, grid=None, min_blocks=None):
+    subs = []
+    if units is not None:
+        subs.append(("  while (tpr < units && ",
+                     f"  while (tpr < (units + {units - 1}) / {units} && "))
+    if rows is not None:
+        subs.append((_RMS_ROWS, f"constexpr int kRowsPerThread = {rows};"))
+    if grid is not None:
+        # the register route's row group becomes a loop over groups (a
+        # barrier before each: the shared partial sums are reused), and
+        # its grid is capped at `grid` blocks an SM
+        subs += [
+            ("    const long long base = (long long)blockIdx.x * rows * R;\n",
+             "    for (long long base = (long long)blockIdx.x * rows * R;\n"
+             "         base < m; base += (long long)gridDim.x * rows * R) {\n"
+             "    __syncthreads();\n"),
+            ("  } else {\n    const long long row = (long long)blockIdx.x",
+             "  }\n  } else {\n    const long long row = "
+             "(long long)blockIdx.x"),
+            ("  const long long grid = (m + rows - 1) / rows;\n",
+             "  long long grid = (m + rows - 1) / rows;\n"
+             "  int dev = 0, sms = 0;\n"
+             "  cudaGetDevice(&dev);\n"
+             "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,"
+             " dev);\n"
+             f"  if (NV > 0 && grid > {grid}LL * sms)\n"
+             f"    grid = {grid}LL * sms;\n"),
+        ]
+    if min_blocks is not None:
+        subs.append((_RMS_BOUNDS, _RMS_BOUNDS.replace(
+            "(kThreads)", f"(kThreads, {min_blocks})")))
+    return tuple(subs)
+
+
+RMS_VARIANTS = {
+    "repo": (),
+    "rows1": _rms(rows=1),
+    "rows1_minblocks8": _rms(rows=1, min_blocks=8),
+    "rows4": _rms(rows=4),
+    "minblocks6": _rms(min_blocks=6),
+    "units2_rows1": _rms(units=2, rows=1),
+    "rows1_persistent8": _rms(rows=1, grid=8),
+    "persistent4": _rms(grid=4),
+    "rows4_persistent2": _rms(rows=4, grid=2),
+    "probe_no_scale": (("      if (c < units) sc[i] = load_unit<S, VT>(scale "
+                        "+ c * VT);",
+                        "      if (c < units) for (int j = 0; j < VT; ++j) "
+                        "sc[i].e[j] = from_f32<S>(1.f);"),),
+    "probe_no_reduce": (("    row_sums<R>(ss, tpr, part);\n", ""),),
+}
+VARIANTS = {"fused_ffn": FFN_VARIANTS, "flash_attention": ATTN_VARIANTS,
+            "rmsnorm": RMS_VARIANTS}
+
 
 def variant_sources(name: str) -> dict:
     src = (ROOT / "src/repro_torch/csrc" / f"{name}.cu").read_text()
-    variants = FFN_VARIANTS if name == "fused_ffn" else ATTN_VARIANTS
+    variants = VARIANTS[name]
     out = {}
     for tag, subs in variants.items():
         text = src
@@ -115,35 +184,43 @@ def build_variants(name: str) -> dict:
     return libs
 
 
-def events_ms(fn, reps: int) -> float:
+def _calls(fn, reps: int, sets):
+    """``reps`` calls of ``fn``, call ``i`` on ``sets[i % len(sets)]``; with
+    several sets the last ``len(sets)`` outputs stay alive, so that outputs
+    rotate through fresh memory as the inputs do."""
+    keep = [None] * len(sets) if len(sets) > 1 else None
+    for i in range(reps):
+        out = fn(*sets[i % len(sets)])
+        if keep:
+            keep[i % len(keep)] = out
+
+
+def events_ms(fn, reps: int, sets=((),)) -> float:
     import torch
 
-    for _ in range(3):
-        fn()
+    _calls(fn, max(3, len(sets)), sets)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    _calls(fn, reps, sets)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str):
+def device_ms(fn, reps: int, name: str, sets=((),)):
     """Device time per call of the device kernels whose names contain
     ``name`` (all of them for ``""``), from ``torch.profiler``, host launch
     cost excluded; ``None`` when the profiler shows none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    _calls(fn, len(sets), sets)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        _calls(fn, reps, sets)
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -240,12 +317,68 @@ def run_attn() -> None:
     _build._LOADED.pop("flash_attention", None)
 
 
+def run_rms(passes: int = 3) -> None:
+    """B4 variants at d 2048 (M 4096 prefill, M 8 decode) and at qk-norm's
+    d 128 over 4096 tokens x 32 heads, bf16; shapes above a few MB on
+    rotating input sets (L2-cold).  Every variant and yardstick is timed in
+    ``passes`` turns (each turn times all of them once); the line gives the
+    median of the turns."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+
+    for m, d in ((4096, 2048), (8, 2048), (4096 * 32, 128)):
+        nbytes = (2 * m * d + d) * 2
+        n_sets = -(-2 * (50 << 20) // nbytes) + 1 if nbytes > 4 << 20 else 1
+        sets = tuple((randn((m, d), 10 + 2 * i), randn((d,), 11 + 2 * i))
+                     for i in range(n_sets))
+        copies = tuple((x, torch.empty_like(x)) for x, _ in sets)
+        want = rn.rmsnorm_plain(*sets[0])
+
+        def library(x, s, d=d):
+            return F.rms_norm(x, (d,), s, 1e-5)
+
+        # name -> (call, its argument sets, device kernels' name, lib)
+        timed = {"copy_ (x to a second buffer)":
+                 (lambda x, o: o.copy_(x), copies, "", None),
+                 "F.rms_norm": (library, sets, "", None)}
+        rows = {name: {} for name in timed}
+        for tag, (lib, spills) in LIBS["rmsnorm"].items():
+            _build._LOADED["rmsnorm"] = lib
+            ok = close(rn.fused_rmsnorm(*sets[0]), want)
+            rows[tag] = {"ok": ok, "ptxas": spills}
+            if ok or tag.startswith("probe_"):
+                timed[tag] = (rn.fused_rmsnorm, sets, "rmsnorm_", lib)
+        runs = {name: ([], []) for name in timed}
+        for _ in range(passes):
+            for name, (fn, args, kname, lib) in timed.items():
+                if lib is not None:
+                    _build._LOADED["rmsnorm"] = lib
+                runs[name][0].append(events_ms(fn, 200, args))
+                runs[name][1].append(device_ms(fn, 100, kname, args))
+        for name, row in rows.items():
+            ms, dev = runs.get(name, ([], []))
+            # a pass whose trace held no device time is left out
+            seen = [t for t in dev if t is not None]
+            print(json.dumps({
+                "kernel": "rmsnorm", "m": m, "d": d, "variant": name,
+                "sets": n_sets, "bound_ms": nbytes / 3.35e12 * 1e3, **row,
+                "ms": statistics.median(ms) if ms else None,
+                "device_ms": statistics.median(seen) if seen else None,
+                "device_ms_passes": dev}), flush=True)
+    _build._LOADED.pop("rmsnorm", None)
+
+
 LIBS: dict = {}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["ffn", "attn"], default=None)
+    ap.add_argument("--only", choices=["ffn", "attn", "rms"], default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -257,13 +390,16 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
     names = {"ffn": ["fused_ffn"], "attn": ["flash_attention"],
-             None: ["fused_ffn", "flash_attention"]}[args.only]
+             "rms": ["rmsnorm"],
+             None: ["fused_ffn", "flash_attention", "rmsnorm"]}[args.only]
     for name in names:
         LIBS[name] = build_variants(name)
     if "fused_ffn" in names:
         run_ffn()
     if "flash_attention" in names:
         run_attn()
+    if "rmsnorm" in names:
+        run_rms()
     return 0
 
 

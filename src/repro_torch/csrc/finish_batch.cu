@@ -18,9 +18,17 @@
 // integer operations and one float64 division per lane, so it is bound by
 // bytes: about 26 ns at 3.35 TB/s for a generation of 1,024 lanes.  At the
 // planner's batch sizes (~10^2 lanes) it is bound by the launch itself,
-// and the host-device copies and the host code around it set the pace.
-// The design is a simple grid-stride loop, one thread per lane, 256
-// threads per block; no shared memory, wgmma or TMA applies to this work.
+// and what surrounds it sets the pace: the lanes start and end in host
+// memory.  The design is a simple grid-stride loop, one thread per lane,
+// 256 threads per block; no shared memory, wgmma or TMA applies to this
+// work.
+//
+// Zero copy: `in` and `out` may be pinned host memory, passed as the
+// device pointers that finish_batch_device_ptr returns for them (the H100
+// reads and writes host memory through unified addressing), so a batch is
+// one launch and one finish_batch_sync, with no copy and no device
+// allocation.  The same kernel runs on device buffers (finish_lanes on
+// CUDA tensors).
 //
 // Bit-exactness with the scalar Python kernel (math.ceil(fp / glb)):
 // the engine's guards (needs_scalar_fallback) keep fp < 2**31 and
@@ -92,4 +100,23 @@ extern "C" int finish_batch_launch(const void* in, void* out, long long n,
                         (cudaStream_t)stream>>>(
       (const int64_t*)in, (int64_t*)out, (int64_t)n);
   return (int)cudaGetLastError();
+}
+
+// The device pointer through which kernels on the current device reach the
+// host allocation at `host` (pinned memory is mapped under unified
+// addressing); cudaErrorInvalidValue if `host` is not mapped host memory.
+extern "C" int finish_batch_device_ptr(const void* host, void** dev) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return (int)cudaErrorInvalidValue;
+  *dev = attr.devicePointer;
+  return 0;
+}
+
+// Wait for `stream`; returns its cudaError_t (a fault in the kernel shows
+// here).
+extern "C" int finish_batch_sync(void* stream) {
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }

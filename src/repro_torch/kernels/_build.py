@@ -8,6 +8,11 @@ unchanged one loads straight away.  ptxas's report (registers, shared
 memory, spills per kernel) is kept beside the library as ``<stem>.log``.
 A failed build raises with nvcc's stderr; nothing falls back to another
 implementation.  :func:`build_all` starts one nvcc per source at once.
+
+:func:`launch` is the launch path of the wrappers: it calls a C entry
+point on the current stream of a device at the least host cost the
+binding allows (no stream object, no device switch when the device is
+already current).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -34,10 +41,12 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "finish_batch": {
         "finish_batch_launch": ([_P, _P, _LL, _P], _I),
+        "finish_batch_device_ptr": ([_P, ctypes.POINTER(_P)], _I),
+        "finish_batch_sync": ([_P], _I),
     },
     "rmsnorm": {
-        # x, scale, out, m, d, eps, x_dtype, scale_dtype, stream
-        "rmsnorm_launch": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
+        # x, scale, out, m, d, eps, x_dtype, scale_dtype, vec, stream
+        "rmsnorm_launch": ([_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P], _I),
     },
     "fused_ffn": {
         # x, wg, wi, wo, h, out, m, d, f, dtype, stream
@@ -54,9 +63,14 @@ _SIGNATURES = {
 
 #: dtype codes of the C entry points (``DT_F32``/``DT_BF16`` in
 #: ``csrc/tile_mma.cuh``)
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+# the current device and a device's current stream, read straight from
+# torch's C bindings (a CPU-only build has neither, and launches nothing)
+_GET_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def find_nvcc() -> Optional[str]:
@@ -149,22 +163,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda_tensors(name: str, *tensors, contiguous: bool = True) -> None:
+def check_cuda_tensors(name: str, *tensors, contiguous: bool = True) -> int:
     """Raise ``ValueError`` unless every tensor lies on one CUDA device
     (and, with ``contiguous``, is contiguous): the kernels take nothing
-    else."""
-    dev = tensors[0].device
+    else.  Returns that device's index."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name} runs on tensors of one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} expects contiguous tensors")
+    return index
 
 
 def dtype_code(name: str, t) -> int:
-    """The C entry points' code for ``t``'s dtype (fp32 or bf16)."""
-    code = DTYPE_CODES.get(str(t.dtype))
+    """The C entry points' code for ``t``'s dtype (fp32 or bf16), looked up
+    by the ``torch.dtype`` object."""
+    code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise ValueError(f"{name} takes float32 or bfloat16, not {t.dtype}")
     return code
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``, read
+    without building a ``torch.cuda.Stream`` object."""
+    return _RAW_STREAM(index)
+
+
+def launch(entry, index: int, *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` with the current
+    stream of CUDA device ``index``, on that device: made current for the
+    call only if it is not already.  Raises ``RuntimeError`` if the entry
+    returns a nonzero ``cudaError_t``."""
+    if _GET_DEVICE() == index:
+        err = entry(*args, _RAW_STREAM(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, _RAW_STREAM(index))
+    if err != 0:
+        raise RuntimeError(f"{entry.__name__} failed: cudaError_t {err}")

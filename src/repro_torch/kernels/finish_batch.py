@@ -28,12 +28,16 @@ ema_w, fp_out, noc, infeasible_buf, w_overflow, stream, feasible``).
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.obs import recorder as obs
+
+from . import _build
 
 N_IN = 7
 N_OUT = 9
@@ -69,21 +73,14 @@ def _finish_torch(fp, w_total, single, glb, wbuf, shared, share):
             stream, feasible)
 
 
-def _launch_cuda(lanes: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch of the CUDA kernel on the current stream of the lanes'
-    device (no sync).  Building or loading the library happens here and
+def _launch(index: int, in_ptr: int, out_ptr: int, n: int) -> None:
+    """One launch of the CUDA kernel on the current stream of device
+    ``index`` (no sync), over device-addressable ``[7, n]`` lanes and
+    ``[9, n]`` results.  Building or loading the library happens here and
     nowhere else: a missing ``nvcc`` or a failed build raises."""
     global launches
-    from . import _build
-
-    lib = _build.load("finish_batch")
-    with torch.cuda.device(lanes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.finish_batch_launch(lanes.data_ptr(), out.data_ptr(),
-                                      lanes.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"finish_batch kernel launch failed: cudaError_t {err}")
+    _build.launch(_build.load("finish_batch").finish_batch_launch, index,
+                  in_ptr, out_ptr, n)
     launches += 1
 
 
@@ -101,11 +98,11 @@ def finish_lanes(lanes: torch.Tensor) -> torch.Tensor:
             f"{list(lanes.shape)} {lanes.dtype}")
     if not lanes.is_contiguous():
         raise ValueError("finish_lanes expects a contiguous tensor")
-    if lanes.device.type == "cuda":
-        out = torch.empty((N_OUT, lanes.shape[1]), dtype=torch.int64,
-                          device=lanes.device)
-        if lanes.shape[1]:
-            _launch_cuda(lanes, out)
+    if lanes.is_cuda:
+        n = lanes.shape[1]
+        out = lanes.new_empty((N_OUT, n))
+        if n:
+            _launch(lanes.get_device(), lanes.data_ptr(), out.data_ptr(), n)
         return out
     if lanes.device.type != "cpu":
         raise ValueError(
@@ -122,33 +119,84 @@ def finish_lanes_plain(lanes: torch.Tensor) -> torch.Tensor:
     return torch.stack([o.to(torch.int64) for o in outs])
 
 
-def _finish_on_card(lanes: torch.Tensor,
-                    device: torch.device) -> torch.Tensor:
-    """Pinned lanes -> device -> kernel -> pinned results, on the current
-    stream; timed with CUDA events while a telemetry recorder is on."""
-    n = lanes.shape[1]
-    stream = torch.cuda.current_stream()
+class _Staging:
+    """Pinned host buffers for one device's batches, grown as batches grow
+    and reused by every batch after: ``[7, n]`` lanes in, ``[9, n]``
+    results out, each with the device pointer through which the card
+    reaches it (checked once, when the buffer is made)."""
+
+    def __init__(self) -> None:
+        self.cap = 0
+        self.index = None
+
+    def reserve(self, n: int, device: torch.device) -> None:
+        """Buffers for ``n`` lanes, and ``index``, the CUDA device the batch
+        runs on.  New buffers are allocated before the device is resolved,
+        so that a machine without a card refuses at the allocation."""
+        cap = max(n, 2 * self.cap, 1024) if n > self.cap else 0
+        hosts = [torch.empty(rows * cap, dtype=torch.int64, pin_memory=True)
+                 for rows in (N_IN, N_OUT)] if cap else ()
+        self.index = (device.index if device.index is not None
+                      else torch.cuda.current_device())
+        if not hosts:
+            return
+        lib = _build.load("finish_batch")
+        bufs = []
+        for host in hosts:
+            dev = ctypes.c_void_p()
+            with torch.cuda.device(self.index):
+                err = lib.finish_batch_device_ptr(host.data_ptr(),
+                                                  ctypes.byref(dev))
+            if err != 0:
+                raise RuntimeError(
+                    f"pinned host memory is not mapped for CUDA device "
+                    f"{self.index} (cudaError_t {err}): the zero-copy "
+                    f"batch cannot run")
+            bufs.append((host, host.numpy(), dev.value))
+        (self.lanes, self.lanes_np, self.lanes_dev), \
+            (self.out, self.out_np, self.out_dev) = bufs
+        self.cap = cap
+
+
+_STAGING = threading.local()
+
+
+def _staging(device: torch.device, n: int) -> _Staging:
+    """This thread's staging buffers for ``device``, holding ``n`` lanes."""
+    per_device = getattr(_STAGING, "per_device", None)
+    if per_device is None:
+        per_device = _STAGING.per_device = {}
+    st = per_device.get(device.index)
+    if st is None:
+        st = per_device[device.index] = _Staging()
+    st.reserve(n, device)
+    return st
+
+
+def _zero_copy(st: _Staging, n: int) -> None:
+    """The kernel straight from the pinned lanes into the pinned results,
+    then one sync.  While a recorder is on, CUDA events time the launch into
+    ``kernel.finish_batch.zero_copy_ms``: the kernel with its reads and
+    writes across the host link, which are the whole crossing."""
     rec = obs.current()
-    ev = ([torch.cuda.Event(enable_timing=True) for _ in range(4)]
-          if rec.enabled else None)
-    if ev:
-        ev[0].record(stream)
-    lanes_dev = lanes.to(device, non_blocking=True)
-    if ev:
-        ev[1].record(stream)
-    out_dev = finish_lanes(lanes_dev)
-    if ev:
-        ev[2].record(stream)
-    out = torch.empty((N_OUT, n), dtype=torch.int64, pin_memory=True)
-    out.copy_(out_dev, non_blocking=True)
-    if ev:
-        ev[3].record(stream)
-    stream.synchronize()
-    if ev:
-        rec.add("kernel.finish_batch.h2d_ms", ev[0].elapsed_time(ev[1]))
-        rec.add("kernel.finish_batch.kernel_ms", ev[1].elapsed_time(ev[2]))
-        rec.add("kernel.finish_batch.d2h_ms", ev[2].elapsed_time(ev[3]))
-    return out
+    if not rec.enabled:
+        _launch(st.index, st.lanes_dev, st.out_dev, n)
+        _sync(st.index)
+        return
+    with torch.cuda.device(st.index):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _launch(st.index, st.lanes_dev, st.out_dev, n)
+        ev[1].record()
+        _sync(st.index)
+    rec.add("kernel.finish_batch.zero_copy_ms", ev[0].elapsed_time(ev[1]))
+
+
+def _sync(index: int) -> None:
+    err = _build.load("finish_batch").finish_batch_sync(
+        _build.current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"finish_batch kernel failed: cudaError_t {err}")
 
 
 def finish_cost_batch(fp, w_total, single, glb, wbuf, shared, share,
@@ -159,13 +207,14 @@ def finish_cost_batch(fp, w_total, single, glb, wbuf, shared, share,
     masks); every lane must already satisfy the engine's scalar-fallback
     guards.  Returns ``(wr, n_blocks, ema_w, fp_out, noc, infeasible_buf,
     w_overflow, stream, feasible)`` as NumPy arrays (int64, then bool),
-    bit-identical to the scalar kernel and to the ``vector`` backend.
+    bit-identical to the scalar kernel and to the ``vector`` backend, and
+    owned by the caller (no later batch writes into them).
 
-    On a CUDA device the lanes cross in one pinned ``[7, n]`` host-to-device
-    copy, the kernel runs once on the current stream, and the results come
-    back in one ``[9, n]`` device-to-host copy.  With a telemetry recorder
-    installed, CUDA events time the three steps into the recorder's
-    ``kernel.finish_batch.*`` counters (milliseconds).
+    On a CUDA device the lanes are written into pinned host memory, and
+    one launch reads them there and writes the results into pinned host
+    memory (zero copy: no copy, no device allocation), then one sync.
+    With a telemetry recorder installed, CUDA events time the launch into
+    the recorder's ``kernel.finish_batch.zero_copy_ms`` (milliseconds).
     """
     device = torch.device(device)
     n = len(fp)
@@ -173,16 +222,18 @@ def finish_cost_batch(fp, w_total, single, glb, wbuf, shared, share,
         empty_i = np.zeros(0, dtype=np.int64)
         empty_b = np.zeros(0, dtype=bool)
         return (empty_i,) * 5 + (empty_b,) * 4
-    cuda = device.type == "cuda"
-    lanes = torch.empty((N_IN, n), dtype=torch.int64, pin_memory=cuda)
-    view = lanes.numpy()
-    for row, arr in enumerate((fp, w_total, single, glb, wbuf, shared,
-                               share)):
+    columns = (fp, w_total, single, glb, wbuf, shared, share)
+    if device.type != "cuda":
+        lanes = torch.empty((N_IN, n), dtype=torch.int64)
+        view = lanes.numpy()
+        for row, arr in enumerate(columns):
+            view[row] = arr
+        res = finish_lanes(lanes).numpy()
+        return tuple(res[:5]) + tuple(res[5:] != 0)
+    st = _staging(device, n)
+    view = st.lanes_np[:N_IN * n].reshape(N_IN, n)
+    for row, arr in enumerate(columns):
         view[row] = arr
-    if not cuda:
-        out = finish_lanes(lanes)
-    else:
-        with torch.cuda.device(device):
-            out = _finish_on_card(lanes, device)
-    res = out.numpy()
-    return tuple(res[:5]) + tuple(res[5:] != 0)
+    _zero_copy(st, n)
+    res = st.out_np[:N_OUT * n].reshape(N_OUT, n)
+    return tuple(res[:5].copy()) + tuple(res[5:] != 0)

@@ -13,7 +13,10 @@ machine without them:
   allow TMA or 16-byte copies;
 * the smoke tinyllama served through the CUDA kernels and through their
   plain versions on the CPU gives the same greedy tokens, with each kernel
-  launched as often as the model's structure implies.
+  launched as often as the model's structure implies;
+* B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
+  view off a 16-byte boundary (its scalar route);
+* B1's planner batches (zero copy), bitwise, and owning their results.
 """
 
 import sys
@@ -150,3 +153,90 @@ def test_engine_on_the_card_equals_the_cpu():
     assert flash_attention.launches == cfg.n_layers       # one prefill
     assert fused_ffn.launches == 6 * cfg.n_layers         # six forwards
     assert rmsnorm.launches == 6 * (2 * cfg.n_layers + 1)
+
+
+RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 300, 4097])
+@pytest.mark.parametrize("d", [64, 128, 256, 2047, 2048, 5632])
+def test_rmsnorm_against_plain_in_every_dtype_pair(d, m):
+    """B4 at qk-norm's widths, the serving width, a width that is no whole
+    number of 16-byte units (the scalar route) and d_ff's, for x and scale
+    each fp32 or bf16 (``tests/test_kernels.py``'s tolerance of x's
+    dtype)."""
+    needs_gpu()
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(d * 7 + m)
+    for xt in (torch.bfloat16, torch.float32):
+        for st in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, d), generator=g, device="cuda").to(xt)
+            s = torch.randn((d,), generator=g, device="cuda").to(st)
+            got = rn.fused_rmsnorm(x, s)
+            tol = RMS_TOL[xt]
+            assert got.dtype == xt
+            assert torch.allclose(got.float(), rn.rmsnorm_plain(x, s).float(),
+                                  rtol=tol, atol=tol), (xt, st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_on_a_view_off_16_bytes_takes_the_scalar_route(dtype):
+    """x one element into its storage (a contiguous view, as
+    ``x.reshape(-1, d).contiguous()`` may hand over): the wrapper chooses
+    the scalar route, and the result equals the plain version's."""
+    needs_gpu()
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    m, d = 300, 2048
+    x = torch.empty(m * d + 1, dtype=dtype, device="cuda")[1:].view(m, d)
+    x.copy_(torch.randn((m, d), generator=g, device="cuda"))
+    s = torch.randn((d,), generator=g, device="cuda").to(dtype)
+    assert x.is_contiguous()
+    assert not rn.vector_route(x.data_ptr(), s.data_ptr(), 0, d,
+                               x.element_size())
+    tol = RMS_TOL[dtype]
+    assert torch.allclose(rn.fused_rmsnorm(x, s).float(),
+                          rn.rmsnorm_plain(x, s).float(), rtol=tol, atol=tol)
+
+
+def _batch(n):
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import _as_args, guard_lanes, make_lanes
+
+    return _as_args(guard_lanes() if n == "guard" else make_lanes(n, seed=7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 185, 1024, 1025, 1 << 20, "guard"])
+def test_finish_cost_batch_bitwise(n):
+    """A batch from NumPy to NumPy through pinned host memory (zero copy),
+    bitwise against the plain version on the CPU: either side of the
+    staging buffers' first size (1,024 lanes; the next batch grows them),
+    at a million lanes and on the guard-boundary lanes."""
+    needs_gpu()
+    from repro_torch.kernels import finish_batch as fb
+
+    args = _batch(n)
+    got = fb.finish_cost_batch(*args, device="cuda")
+    want = fb.finish_cost_batch(*args, device="cpu")
+    assert len(got) == 9
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_successive_batches_on_the_card_do_not_share_memory():
+    """A batch reuses the pinned buffers: a batch's results must
+    be the caller's, unchanged by the next batch."""
+    needs_gpu()
+    from repro_torch.kernels import finish_batch as fb
+
+    first = fb.finish_cost_batch(*_batch(185), device="cuda")
+    kept = [a.copy() for a in first]
+    second = fb.finish_cost_batch(*_batch(186), device="cuda")
+    assert not any(np.shares_memory(a, b) for a in first for b in second)
+    assert all(np.array_equal(a, k) for a, k in zip(first, kept))
