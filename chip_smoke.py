@@ -22,8 +22,14 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   tinyllama-1.1b in bf16 with a bf16 cache (the weights and prompts
   ``python -m repro_torch.launch.serve`` makes) and ``launch.serve`` itself
   at its defaults (fp32 cache) on a short run, each with every kernel's
-  launches held to the count the model's structure implies; and an fp32
-  forward and greedy decode on the card against the same on the CPU.
+  launches held to the count the model's structure implies; an fp32
+  forward and greedy decode on the card against the same on the CPU;
+* the hybrid and MoE layers: one 8-layer slice of jamba-v0.1-52b at its
+  published widths (Mamba, attention, 16 experts x d_ff 14,336) served in
+  bf16 with a bf16 cache, every expert through the fused SwiGLU kernel,
+  launches held to the structure; the jamba and arctic smoke configs in
+  fp32 on the card against the CPU (logits, router choices, greedy
+  tokens), and ``launch.serve`` on jamba's smoke config.
 
 Last it times every kernel beside its plain version, its bound and the
 library call where one computes the same function; a call that moves
@@ -111,14 +117,19 @@ LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 RMS_CASES = ((4096, 2048, 0), (800, 2048, 0), (8, 2048, 0), (4095, 2048, 0),
              (3, 200, 0), (4096, 64, 0), (4096, 128, 0), (300, 256, 0),
              (8, 5632, 0), (4, 20000, 0), (5, 2047, 0), (800, 2048, 1),
-             (8, 5632, 1))
+             (8, 5632, 1), (4096, 4096, 0))
 # B3 at M on both sides of the small/large-M tile threshold (16) and of
 # the large tiles' 128 rows, the prefill and decode shapes, and a ragged
 # shape (no TMA: the small tiles at any M)
 FFN_CASES = tuple((m, 2048, 5632) for m in (1, 4, 8, 16, 63, 64, 65, 129,
                                             800, 4096)) + ((77, 200, 300),)
+# B3 at jamba-v0.1-52b's width (d 4096, d_ff 14,336), bf16: decode at
+# batch 8, one expert's rows at an 8 x 512 prefill (B * C = 8 * 80) and a
+# dense FFN's at that prefill
+JAMBA_FFN_CASES = tuple((m, 4096, 14336) for m in (8, 640, 4096))
 # (B, H, Hkv, S, d, causal, window): the serving shapes and ragged ones
 ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
+              (8, 32, 8, 512, 128, True, 0),  # jamba's attention
               (2, 4, 4, 130, 32, True, 48), (1, 2, 2, 100, 128, False, 0),
               (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0))
 # B2's tile edges (64 queries, 64 keys): every S, with and without a window
@@ -530,16 +541,24 @@ SERVE_RUNS = ((8, 512), (4, 200))
 SERVE_CLI_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b",
                   "--requests", "2", "--prompt-len", "64", "--new-tokens",
                   "8")
-# launches the model's structure implies (tinyllama: 22 attention + dense
-# FFN layers): per forward, 2 norms a layer + the final norm and one FFN a
-# layer; per prefill, one attention a layer (decode attends over the cache
-# in plain torch)
-N_LAYERS = 22
 # serve_vs_cpu: logits of the fp32 forward on the card (kernels) and on
 # the CPU (plain versions).  Both are fp32; they differ in summation order
 # over depths up to 5,632 through 22 layers, O(1e-5) on logits of unit
 # scale, so 1e-3 absolute + 1e-3 relative separates that from any fault
 SERVE_VS_CPU_TOL = 1e-3
+# serve_hybrid: jamba-v0.1-52b at its published widths (d 4096, 32 / 8 KV
+# heads, d_head 128, 16 experts top-2 at d_ff 14,336, Mamba expand 2,
+# d_state 16, d_conv 4, vocab 65,536) cut to one 8-layer slice of its 32
+# layers (at full depth its 52 B parameters, ~104 GB in bf16, do not fit
+# one 80 GB card): 7 Mamba layers and 1 attention layer, 4 MoE and 4 dense
+# FFNs.  bf16 with a bf16 cache, random weights from seed 0 drawn on the
+# card, served as SERVE_RUNS
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+# hybrid_vs_cpu: the smoke configs of the hybrid and MoE archs in fp32, as
+# serve_vs_cpu; then launch.serve.main at its defaults on jamba's
+HYBRID_VS_CPU_ARCHS = ("jamba-v0.1-52b", "arctic-480b")
+HYBRID_CLI_ARGS = ("--device", "cuda", "--arch", "jamba-v0.1-52b",
+                   "--smoke")
 
 
 def _lm_counters():
@@ -550,18 +569,17 @@ def _lm_counters():
     return {"rmsnorm": rn, "fused_ffn": ff, "flash_attention": fa}
 
 
-def _check_tokens(what, tokens, n, new_tokens) -> None:
+def _check_tokens(what, tokens, n, new_tokens, vocab) -> None:
     if sorted(tokens) != list(range(n)) or any(
-            len(t) != new_tokens or not all(0 <= x < 32000 for x in t)
+            len(t) != new_tokens or not all(0 <= x < vocab for x in t)
             for t in tokens.values()):
         raise AssertionError(f"{what}: not {new_tokens} in-vocab tokens for "
                              f"each of {n} requests")
 
 
-def _serve_bf16(n: int, prompt_len: int) -> tuple:
-    """The requests, weights and serving config ``launch.serve.main`` makes
-    for ``n`` prompts of ``prompt_len`` tokens, served with a bf16 cache;
-    its requests' tokens and its groups' stats."""
+def _serve(cfg, values, reqs, scfg) -> tuple:
+    """``reqs`` served by ``ServeEngine`` over ``values`` at ``scfg`` with a
+    bf16 cache; its requests' tokens and its groups' stats."""
     import dataclasses
 
     import torch
@@ -569,20 +587,30 @@ def _serve_bf16(n: int, prompt_len: int) -> tuple:
     from repro_torch.launch import serve
     from repro_torch.serve import ServeEngine
 
-    cfg, values, reqs, scfg = serve.make_run(
-        SERVE_ARCH, False, n, prompt_len, SERVE_NEW_TOKENS, SERVE_MAX_BATCH,
-        SERVE_SEED, "cuda")
     eng = ServeEngine(cfg, values, dataclasses.replace(
         scfg, cache_dtype=torch.bfloat16))
-    del values
     tokens = eng.generate(reqs)
-    _check_tokens(f"serve {n} x {prompt_len}", tokens, n, SERVE_NEW_TOKENS)
+    _check_tokens(f"{cfg.name} {len(reqs)} x {len(reqs[0].prompt)}", tokens,
+                  len(reqs), SERVE_NEW_TOKENS, cfg.vocab)
     return tokens, serve.group_stats(eng)
 
 
-def _serve_cli() -> tuple:
-    """One ``repro_torch.launch.serve.main`` call at :data:`SERVE_CLI_ARGS`;
-    its requests' tokens and its ``group:`` lines."""
+def _serve_bf16(n: int, prompt_len: int) -> tuple:
+    """The requests, weights and serving config ``launch.serve.main`` makes
+    for ``n`` prompts of ``prompt_len`` tokens, served with a bf16 cache;
+    its requests' tokens and its groups' stats."""
+    from repro_torch.launch import serve
+
+    cfg, values, reqs, scfg = serve.make_run(
+        SERVE_ARCH, False, n, prompt_len, SERVE_NEW_TOKENS, SERVE_MAX_BATCH,
+        SERVE_SEED, "cuda")
+    return _serve(cfg, values, reqs, scfg)
+
+
+def _serve_cli(args, n, new_tokens, vocab) -> tuple:
+    """One ``repro_torch.launch.serve.main`` call at ``args``, which serves
+    ``n`` requests of ``new_tokens`` tokens; its requests' tokens and its
+    ``group:`` lines."""
     import contextlib
     import io
 
@@ -590,9 +618,9 @@ def _serve_cli() -> tuple:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main(list(SERVE_CLI_ARGS))
+        rc = serve.main(list(args))
     if rc != 0:
-        raise AssertionError(f"serve {SERVE_CLI_ARGS} exited {rc}")
+        raise AssertionError(f"serve {args} exited {rc}")
     tokens, groups = {}, []
     for line in buf.getvalue().splitlines():
         if line.startswith("req "):
@@ -600,16 +628,41 @@ def _serve_cli() -> tuple:
             tokens[int(rid)] = json.loads(toks)
         elif line.startswith("group: "):
             groups.append(json.loads(line[len("group: "):]))
-    _check_tokens("serve CLI", tokens, 2, 8)
+    _check_tokens(f"serve {args}", tokens, n, new_tokens, vocab)
     return tokens, groups
 
 
-def _structural(groups) -> dict:
-    """Launches the model's structure implies for these serving groups."""
+def _per_forward(cfg) -> dict:
+    """Launches of each kernel in one forward of ``cfg`` (attention: in a
+    prefill of more than one token; decode attends over the cache in
+    plain torch): per layer one norm before the mixer, one before the FFN
+    if it has one, 2 more for qk-norm; the final norm; the fused SwiGLU
+    once for a dense FFN, once for each expert of a MoE (every expert,
+    every call), once for its shared experts and once for Arctic's dense
+    residual FFN."""
+    from repro_torch.models.config import (ATTN, ATTN_LOCAL, FFN_DENSE,
+                                           FFN_MOE, FFN_MOE_RESIDUAL,
+                                           FFN_NONE)
+
+    specs = cfg.block_specs()
+    moe = cfg.n_experts + (1 if cfg.n_shared_experts else 0)
+    ffn = {FFN_DENSE: 1, FFN_MOE: moe, FFN_MOE_RESIDUAL: moe + 1,
+           FFN_NONE: 0}
+    attn = sum(s.mixer in (ATTN, ATTN_LOCAL) for s in specs)
+    return {"rmsnorm": sum(1 + (s.ffn != FFN_NONE) for s in specs) + 1
+            + 2 * attn * cfg.qk_norm,
+            "fused_ffn": sum(ffn[s.ffn] for s in specs),
+            "flash_attention": attn}
+
+
+def _structural(cfg, groups) -> dict:
+    """Launches ``cfg``'s structure implies for these serving groups: one
+    prefill and ``decode_steps`` decode forwards a group."""
+    per = _per_forward(cfg)
     forwards = sum(1 + g["decode_steps"] for g in groups)
-    return {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
-            "fused_ffn": N_LAYERS * forwards,
-            "flash_attention": N_LAYERS * len(groups)}
+    return {"rmsnorm": per["rmsnorm"] * forwards,
+            "fused_ffn": per["fused_ffn"] * forwards,
+            "flash_attention": per["flash_attention"] * len(groups)}
 
 
 def _trace_tops(prof, n: int = 12) -> dict:
@@ -633,6 +686,35 @@ def _trace_tops(prof, n: int = 12) -> dict:
             "top_host_self_ms": host[:n]}
 
 
+def _traced(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result, and the trace's wall
+    time, device activity and idle share, each LM kernel's traced launches
+    (counted by its first device kernel) and the heaviest device kernels
+    and host ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = [n for lib in LM_KERNELS.values() for n in lib[2]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        wall = time.perf_counter() - t0
+    activity = _device_activity(prof, tuple(names))
+    by_kernel = {lib: 0 for lib in LM_KERNELS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for lib, (_, _, knames) in LM_KERNELS.items():
+                by_kernel[lib] += knames[0] in e.name
+    return result, {
+        "traced_wall_s": wall, "traced_launches": by_kernel, **activity,
+        "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3 / wall
+                              if activity["device_events"] else None),
+        **_trace_tops(prof)}
+
+
 def phase_serve() -> dict:
     """The serving path at full width with a bf16 cache: both runs
     untraced, with every kernel's launch count set to 0 before and read
@@ -642,8 +724,10 @@ def phase_serve() -> dict:
     equal to its first run's.  Last, ``launch.serve.main`` at its defaults
     (fp32 cache) on a short run, its launches held to the structure too."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE_ARCH)
     counters = _lm_counters()
     for mod in counters.values():
         mod.launches = 0
@@ -654,7 +738,7 @@ def phase_serve() -> dict:
     wall = time.perf_counter() - t0
     launches = {lib: mod.launches for lib, mod in counters.items()}
     groups = [g for _, gs in runs for g in gs]
-    expected = _structural(groups)
+    expected = _structural(cfg, groups)
     for g in groups:
         emit({"phase": "serve", "pass": "first", "group": g})
     # the same runs again, warm (kernels loaded, allocator primed)
@@ -664,32 +748,18 @@ def phase_serve() -> dict:
 
     # the trace covers the main cell (8 x 512) only: its events are what
     # the profiler can post-process in seconds
-    names = [n for lib in LM_KERNELS.values() for n in lib[2]]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        traced = _serve_bf16(*SERVE_RUNS[0])
-        traced_wall = time.perf_counter() - t1
-    activity = _device_activity(prof, tuple(names))
-    from torch.autograd import DeviceType
-
-    by_kernel = {lib: 0 for lib in LM_KERNELS}  # by each launch's first kernel
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for lib, (_, _, knames) in LM_KERNELS.items():
-                by_kernel[lib] += knames[0] in e.name
+    traced, trace = _traced(lambda: _serve_bf16(*SERVE_RUNS[0]))
     for g in traced[1]:
         emit({"phase": "serve", "pass": "traced", "group": g})
     same_tokens = runs[0][0] == traced[0]
 
     for mod in counters.values():
         mod.launches = 0
-    cli_tokens, cli_groups = _serve_cli()
+    cli_tokens, cli_groups = _serve_cli(SERVE_CLI_ARGS, 2, 8, cfg.vocab)
     cli_launches = {lib: mod.launches for lib, mod in counters.items()}
     cli = {"args": list(SERVE_CLI_ARGS), "cache_dtype": "float32",
            "groups": cli_groups, "launches": cli_launches,
-           "expected_launches": _structural(cli_groups)}
+           "expected_launches": _structural(cfg, cli_groups)}
     out = {
         "phase": "serve", "arch": SERVE_ARCH, "seed": SERVE_SEED,
         "max_batch": SERVE_MAX_BATCH, "new_tokens": SERVE_NEW_TOKENS,
@@ -698,14 +768,8 @@ def phase_serve() -> dict:
                                         for g in groups),
         "launches": launches, "expected_launches": expected,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "traced_run": list(SERVE_RUNS[0]), "traced_wall_s": traced_wall,
-        "traced_launches": by_kernel,
-        **activity,
-        "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3
-                              / traced_wall if activity["device_events"]
-                              else None),
+        "traced_run": list(SERVE_RUNS[0]), **trace,
         "tokens_equal_traced_untraced": same_tokens,
-        **_trace_tops(prof),
         "cli": cli,
     }
     emit(out)
@@ -767,12 +831,229 @@ def phase_serve_vs_cpu() -> dict:
     if not close or card_tokens != cpu_tokens:
         raise AssertionError("the card's fp32 forward disagrees with the "
                              "CPU's")
-    one_prefill = {"rmsnorm": 2 * N_LAYERS + 1, "fused_ffn": N_LAYERS,
-                   "flash_attention": N_LAYERS}
+    one_prefill = _per_forward(cfg)
     if launches != one_prefill:
         raise AssertionError(f"the card's forward made {launches} launches, "
                              f"not {one_prefill}")
     return out
+
+
+def _serve_hybrid(cfg, values, n: int, prompt_len: int) -> tuple:
+    """``n`` prompts of ``prompt_len`` tokens, made as ``launch.serve``
+    makes them, served over ``values`` as :func:`_serve_bf16` serves them."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeConfig
+
+    reqs = serve.make_requests(cfg, n, prompt_len, SERVE_NEW_TOKENS,
+                               SERVE_SEED)
+    return _serve(cfg, values, reqs, ServeConfig(
+        max_batch=SERVE_MAX_BATCH, max_len=prompt_len + SERVE_NEW_TOKENS + 8))
+
+
+def phase_serve_hybrid(device: dict) -> dict:
+    """jamba-v0.1-52b's 8-layer slice at full width (:data:`HYBRID_ARCH`),
+    served as ``serve`` serves tinyllama: both runs with every kernel's
+    launch count set to 0 before and read after and held to the
+    structure, both again warm with the same greedy tokens, then the
+    8 x 512 run under ``torch.profiler``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_init, param_values
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    values = param_values(lm_init(
+        cfg, torch.Generator(device="cuda").manual_seed(SERVE_SEED), "cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = 0
+
+    def count(t):
+        nonlocal n_params
+        n_params += t.numel()
+
+    tree_map(count, values)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+    wall = time.perf_counter() - t0
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    groups = [g for _, gs in runs for g in gs]
+    expected = _structural(cfg, groups)
+    for g in groups:
+        emit({"phase": "serve_hybrid", "pass": "first", "group": g})
+    warm = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+    for _, gs in warm:
+        for g in gs:
+            emit({"phase": "serve_hybrid", "pass": "warm", "group": g})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same_tokens = [t for t, _ in runs] == [t for t, _ in warm]
+    traced, trace = _traced(
+        lambda: _serve_hybrid(cfg, values, *SERVE_RUNS[0]))
+    for g in traced[1]:
+        emit({"phase": "serve_hybrid", "pass": "traced", "group": g})
+    del values
+    torch.cuda.empty_cache()
+    specs = cfg.block_specs()
+    out = {
+        "phase": "serve_hybrid", "device": device["nvidia_smi"],
+        "arch": HYBRID_ARCH, "n_layers": cfg.n_layers,
+        "layers": [f"{s.mixer}+{s.ffn}" for s in specs],
+        "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+        "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert,
+        "mamba_inner": cfg.mamba_expand * cfg.d_model,
+        "mamba_d_state": cfg.mamba_d_state, "vocab": cfg.vocab,
+        "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
+        "seed": SERVE_SEED, "max_batch": SERVE_MAX_BATCH,
+        "new_tokens": SERVE_NEW_TOKENS, "cache_dtype": "bfloat16",
+        "runs": [list(r) for r in SERVE_RUNS], "wall_s": wall,
+        "forwards": sum(1 + g["decode_steps"] for g in groups),
+        "launches": launches, "expected_launches": expected,
+        "warm": [{k: g[k] for k in ("batch", "prompt_len", "ttft_s",
+                                    "prefill_s", "decode_tokens_per_s")}
+                 for _, gs in warm for g in gs],
+        "peak_memory_gb": peak_gb,
+        "tokens_equal_first_warm": same_tokens,
+        "tokens_equal_traced_first": traced[0] == runs[0][0],
+        "traced_run": list(SERVE_RUNS[0]), **trace,
+    }
+    emit(out)
+    if launches != expected:
+        raise AssertionError(f"serve_hybrid launches {launches} != "
+                             f"structural {expected}")
+    if not same_tokens or not out["tokens_equal_traced_first"]:
+        raise AssertionError("serve_hybrid: the passes gave other tokens")
+    return out
+
+
+class _RouterChoices:
+    """While active, records at every MoE call of the model the experts
+    each token chooses (sorted) and its gate margin (the k-th gate less
+    the (k+1)-th), so that two runs' routing can be compared."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import blocks
+
+        self.calls, self._inner = [], blocks.moe_apply
+
+        def recording(params, cfg, x, act="silu"):
+            gates = torch.softmax(x.float() @ params["router"].float(), -1)
+            top = torch.topk(gates, cfg.top_k + 1, dim=-1)
+            k = cfg.top_k
+            self.calls.append((
+                top.indices[..., :k].sort(-1).values.cpu(),
+                (top.values[..., k - 1] - top.values[..., k]).cpu()))
+            return self._inner(params, cfg, x, act)
+
+        blocks.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+
+        blocks.moe_apply = self._inner
+
+
+def _hybrid_vs_cpu_case(arch: str) -> dict:
+    """``arch``'s smoke config in fp32 from ``launch.serve.make_run`` (one
+    64-token prompt, the weights drawn on the CPU and copied to the card):
+    the uncached forward's logits on the card within
+    :data:`SERVE_VS_CPU_TOL` of the CPU's, every MoE call routing every
+    token to the same experts, its launches those of one forward, and the
+    engine's 8 greedy tokens equal.  Raises on any difference, printing
+    the tokens routed otherwise with their gate margins."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm_apply
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, values, reqs, scfg = serve.make_run(arch, True, 1, 64, 8, 1,
+                                             SERVE_SEED, "cpu")
+    on_card = tree_map(lambda t: t.to("cuda"), values)
+    tokens = torch.from_numpy(reqs[0].prompt[None, :].astype(np.int64))
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    with _RouterChoices() as card:
+        got = lm_apply(on_card, cfg, tokens.cuda())[0].cpu()
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    with _RouterChoices() as cpu:
+        want = lm_apply(values, cfg, tokens)[0]
+    rerouted = []
+    for i, ((ce, cm), (we, wm)) in enumerate(zip(card.calls, cpu.calls)):
+        for b, s in (ce != we).any(-1).nonzero().tolist():
+            rerouted.append({"moe_call": i, "batch": b, "token": s,
+                             "card": ce[b, s].tolist(),
+                             "cpu": we[b, s].tolist(),
+                             "margin_card": float(cm[b, s]),
+                             "margin_cpu": float(wm[b, s])})
+    err = float((got - want).abs().max())
+    close = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=SERVE_VS_CPU_TOL, atol=SERVE_VS_CPU_TOL)
+
+    def greedy(vals):
+        eng = ServeEngine(cfg, vals, scfg)
+        return eng.generate([serve.Request(rid=0, prompt=reqs[0].prompt,
+                                           max_new_tokens=8)])[0]
+
+    card_tokens, cpu_tokens = greedy(on_card), greedy(values)
+    out = {"phase": "hybrid_vs_cpu", "arch": arch, "compute_dtype":
+           cfg.compute_dtype, "layers": [f"{s.mixer}+{s.ffn}"
+                                         for s in cfg.block_specs()],
+           "logits_shape": list(got.shape), "max_abs_err": err,
+           "max_abs_logit": float(want.abs().max()), "tol":
+           SERVE_VS_CPU_TOL, "close": close, "moe_calls": len(card.calls),
+           "min_gate_margin": min((float(m.min()) for _, m in cpu.calls),
+                                  default=None),
+           "rerouted": rerouted, "launches_forward": launches,
+           "expected_launches": _per_forward(cfg),
+           "card_tokens": card_tokens, "cpu_tokens": cpu_tokens}
+    emit(out)
+    if rerouted or len(card.calls) != len(cpu.calls):
+        raise AssertionError(f"{arch}: the card routed {len(rerouted)} "
+                             f"token choices otherwise than the CPU")
+    if not close or card_tokens != cpu_tokens:
+        raise AssertionError(f"{arch}: the card's fp32 forward disagrees "
+                             f"with the CPU's")
+    if launches != out["expected_launches"]:
+        raise AssertionError(f"{arch}: the card's forward made {launches} "
+                             f"launches, not {out['expected_launches']}")
+    return out
+
+
+def phase_hybrid_vs_cpu() -> dict:
+    """:func:`_hybrid_vs_cpu_case` for each of :data:`HYBRID_VS_CPU_ARCHS`;
+    then ``launch.serve.main`` at its defaults on jamba's smoke config
+    (the reference's fp32 cache), its launches held to the structure."""
+    from repro_torch.configs import get_config
+
+    cases = [_hybrid_vs_cpu_case(arch) for arch in HYBRID_VS_CPU_ARCHS]
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    cfg = get_config(HYBRID_ARCH, smoke=True)
+    _, groups = _serve_cli(HYBRID_CLI_ARGS, 6, 8, cfg.vocab)
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    cli = {"phase": "hybrid_vs_cpu", "args": list(HYBRID_CLI_ARGS),
+           "groups": groups, "launches": launches,
+           "expected_launches": _structural(cfg, groups)}
+    emit(cli)
+    if launches != cli["expected_launches"]:
+        raise AssertionError(f"serve {HYBRID_CLI_ARGS}: launches {launches}"
+                             f" != structural {cli['expected_launches']}")
+    return {"cases": cases, "cli": cli}
 
 
 # -- LM kernels ---------------------------------------------------------------
@@ -828,7 +1109,9 @@ def _lm_calls():
                    dtype,
                    lambda a=args: rn.fused_rmsnorm(*a),
                    lambda a=args: rn.rmsnorm_plain(*a))
-        for i, (m, d, f) in enumerate(FFN_CASES):
+        ffn_cases = FFN_CASES + (JAMBA_FFN_CASES if dtype == torch.bfloat16
+                                 else ())
+        for i, (m, d, f) in enumerate(ffn_cases):
             args = _ffn_inputs(m, d, f, dtype, 20 + 4 * i)
             yield ("fused_ffn", {"m": m, "d": d, "f": f}, dtype,
                    lambda a=args: ff.fused_swiglu(*a),
@@ -846,7 +1129,8 @@ def _lm_calls():
 
 def phase_lm_kernels_vs_plain() -> dict:
     """Each LM kernel against its plain torch version on the same card
-    tensors: at the serving path's shapes and at ragged ones, in bf16
+    tensors: at the serving path's shapes (tinyllama's and jamba's; B3 at
+    jamba's width in bf16 only) and at ragged ones, in bf16
     (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
     ``tests/test_kernels.py``.  Returns the largest absolute error of each
     kernel, by dtype."""
@@ -998,8 +1282,9 @@ def phase_lm_timing() -> dict:
     fp32 cache).  The library calls (``F.scaled_dot_product_attention`` with
     GQA, ``F.rms_norm``) and B3's composite (three bf16 ``torch.matmul``s
     and ``F.silu(g) * u``) are timed here only; the port never calls them.
-    Returns the 8 x 512 prefill row of each kernel, with B3's and B4's
-    decode rows."""
+    Then the same at jamba-v0.1-52b's shapes (d 4096, d_ff 14,336, Hkv 8,
+    d 128).  Returns the 8 x 512 prefill row of each kernel, with B3's and
+    B4's decode rows, and each kernel's jamba rows (``<lib>_jamba``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1053,11 +1338,41 @@ def phase_lm_timing() -> dict:
             nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
             ops=4 * hd * live_pairs, reps=100)
         rows.setdefault("flash_attention", row)
+
+    # jamba-v0.1-52b's shapes (serve_hybrid), bf16: B4 at d 4096 over an
+    # 8 x 512 prefill; B3 at d 4096 x d_ff 14,336 for a dense FFN at that
+    # prefill, one expert's 8 x 80 rows there and decode at batch 8; B2 at
+    # Hkv 8, d 128
+    jd, jf = 4096, 14336
+    rows["rmsnorm_jamba"] = [_timing_row(
+        "rmsnorm", {"m": 4096, "d": jd},
+        lambda i: _rms_inputs(4096, jd, bf16, 61 + 2 * i),
+        rn.fused_rmsnorm, rn.rmsnorm_plain,
+        lambda x, s: F.rms_norm(x, (jd,), s, 1e-5),
+        nbytes=(2 * 4096 * jd + jd) * 2, ops=0, reps=200)]
+    rows["fused_ffn_jamba"] = [_timing_row(
+        "fused_ffn", {"m": m, "d": jd, "f": jf},
+        lambda i, m=m: _ffn_inputs(m, jd, jf, bf16, 63 + 4 * i),
+        ff.fused_swiglu, ff.swiglu_plain, None,
+        nbytes=(2 * m * jd + 3 * jd * jf) * 2, ops=6 * m * jd * jf,
+        reps=20 if m > 8 else 100, composite=composite)
+        for m in (4096, 640, 8)]
+    b, s_len, h, hkv, hd = 8, 512, 32, 8, 128
+    rows["flash_attention_jamba"] = [_timing_row(
+        "flash_attention",
+        {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd, "causal": True},
+        lambda i: _attn_inputs(b, h, hkv, s_len, hd, bf16, 67 + 3 * i),
+        fa.flash_attention, fa.attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
+        ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100)]
     return rows
 
 
 PHASES = ("kernel_vs_plain", "golden", "full_run", "timing",
-          "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "lm_timing")
+          "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
+          "hybrid_vs_cpu", "lm_timing")
 
 
 def main(argv=None) -> int:
@@ -1102,6 +1417,9 @@ def main(argv=None) -> int:
     serve = phase_serve() if run("serve") else None
     if run("serve_vs_cpu"):
         phase_serve_vs_cpu()
+    hybrid = phase_serve_hybrid(device) if run("serve_hybrid") else None
+    if run("hybrid_vs_cpu"):
+        phase_hybrid_vs_cpu()
     lm_rows = phase_lm_timing() if run("lm_timing") else None
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)
@@ -1133,7 +1451,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{lib}.cu",
             "replaces": replaces,
-            "launches": serve["launches"][lib],
+            "launches": serve["launches"][lib] + hybrid["launches"][lib],
+            "launches_by_path": {"serve": serve["launches"][lib],
+                                 "serve_hybrid": hybrid["launches"][lib]},
             "max_abs_err": lm_errs[(lib, "bfloat16")],
             "max_abs_err_fp32": lm_errs[(lib, "float32")],
             "shape": {k: v for k, v in row.items()
@@ -1151,6 +1471,11 @@ def main(argv=None) -> int:
                 "ms", "device_ms", "library_ms", "library_device_ms",
                 "composite_ms")},
         })
+        kernels[-1]["jamba"] = [{k: r[k] for k in (
+            "m", "d", "f", "b", "h", "hkv", "s", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "composite_ms", "l2_cold") if k in r}
+            for r in lm_rows[f"{lib}_jamba"]]
         if f"{lib}_decode" in lm_rows:
             dec = lm_rows[f"{lib}_decode"]
             kernels[-1]["decode"] = {k: dec[k] for k in (

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Host cost of launching the port's B4 (RMSNorm) and B1 (finish_batch)
-kernels on one GPU, for the ``repro_torch`` package found under ``--src``.
+"""Host cost of launching the port's B4 (RMSNorm), B3 (fused SwiGLU), B2
+(flash attention) and B1 (finish_batch) kernels on one GPU, for the
+``repro_torch`` package found under ``--src``.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 scripts/launch_cost.py [--src DIR] [--reps N]
+    python3 scripts/launch_cost.py [--src DIR] [--reps N] [--only WHAT,...]
 
 ``--src`` (default: this checkout's ``src``) may name the ``src`` directory
 of another checkout, so that two versions of the wrappers are timed by the
@@ -22,6 +23,18 @@ block).
   C entry point called through ``ctypes`` with the same arguments and
   ``m = 0`` (it returns at once: the least a ``ctypes`` call of that
   argument list costs), and the ``cProfile`` breakdown of a call;
+* ``fused_ffn``: one B3 call at M 8, d 2048, f 5632 in bf16 (tinyllama's
+  decode shape): events and host time a call beside the composite of
+  three ``torch.matmul``s and ``F.silu(g) * u``.  Its ~47 us on the card
+  exceed the wrapper's host time, so the launch queue fills and the host
+  time there is the card's; the wrapper's own cost is taken at M 8, d 256,
+  f 704 (``narrow_*``: a few us on the card, the same route and wrapper
+  code): host time a call, the ``ctypes`` entry with ``m = 0``, and the
+  ``cProfile`` breakdown;
+* ``flash_attention``: one B2 call at B 1, H 4, Hkv 2, S 64, d 64, causal,
+  bf16 (a few us on the card, so the host time is the wrapper's): events
+  and host time a call beside ``F.scaled_dot_product_attention`` on the
+  same tensors, and the ``cProfile`` breakdown;
 * ``finish_batch``: a planner batch of 185 lanes (the paper-scale run's
   mean): the round trip of ``finish_cost_batch`` from NumPy to NumPy on the
   host clock, ``finish_lanes`` on card tensors between CUDA events, and the
@@ -173,6 +186,93 @@ def run_rmsnorm(reps: int) -> None:
           "profile_us": profile_us(kernel, reps)})
 
 
+def run_ffn(reps: int) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ffn as ff
+
+    m, d, f = 8, 2048, 5632
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).bfloat16()
+
+    def inputs(d, f):
+        args = (rnd(m, d), rnd(d, f, scale=d ** -0.5),
+                rnd(d, f, scale=d ** -0.5), rnd(f, d, scale=f ** -0.5))
+        if not torch.allclose(ff.fused_swiglu(*args).float(),
+                              ff.swiglu_plain(*args).float(), rtol=2e-2,
+                              atol=2e-2):
+            raise AssertionError("B3 disagrees with its plain version")
+        return args
+
+    x, wg, wi, wo = inputs(d, f)
+    narrow = inputs(256, 704)
+    entry = _build.load("fused_ffn").fused_ffn_launch
+    h = torch.empty((m, 704), dtype=x.dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    # m = 0: the entry returns before any CUDA call
+    noop = [*(t.data_ptr() for t in narrow), h.data_ptr(),
+            narrow[0].data_ptr(), 0, 256, 704, 1, stream]
+
+    def call_noop():
+        return entry(*noop)
+
+    def kernel():
+        return ff.fused_swiglu(x, wg, wi, wo)
+
+    def kernel_narrow():
+        return ff.fused_swiglu(*narrow)
+
+    def composite():
+        return (F.silu(x @ wg) * (x @ wi)) @ wo
+
+    emit({"what": "fused_ffn", "m": m, "d": d, "f": f, "dtype": "bfloat16",
+          "blocks": BLOCKS, **in_turns({
+              "events_ms": (events_ms, kernel),
+              "composite_events_ms": (events_ms, composite),
+              "host_us": (host_us, kernel),
+              "composite_host_us": (host_us, composite),
+              "narrow_events_ms": (events_ms, kernel_narrow),
+              "narrow_host_us": (host_us, kernel_narrow),
+              "noop_ctypes_us": (lambda fn, r: host_us(fn, r, sync=False),
+                                 call_noop)}, reps),
+          "narrow_profile_us": profile_us(kernel_narrow, reps)})
+
+
+def run_attention(reps: int) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 64, h, 64), generator=g, device="cuda")
+               .bfloat16().transpose(1, 2) for h in (4, 2, 2))
+    if not torch.allclose(fa.flash_attention(q, k, v).float(),
+                          fa.attention_plain(q, k, v).float(), rtol=2e-2,
+                          atol=2e-2):
+        raise AssertionError("B2 disagrees with its plain version")
+
+    def kernel():
+        return fa.flash_attention(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    emit({"what": "flash_attention", "b": 1, "h": 4, "hkv": 2, "s": 64,
+          "d": 64, "dtype": "bfloat16", "blocks": BLOCKS, **in_turns({
+              "events_ms": (events_ms, kernel),
+              "library_events_ms": (events_ms, library),
+              "host_us": (host_us, kernel),
+              "library_host_us": (host_us, library)}, reps),
+          "profile_us": profile_us(kernel, reps)})
+
+
 def run_finish_batch(reps: int) -> None:
     import torch
 
@@ -246,7 +346,15 @@ def main(argv=None) -> int:
                     help="the src directory that holds repro_torch")
     ap.add_argument("--reps", type=int, default=3500,
                     help="calls a figure is taken over (in 7 blocks)")
+    runs = {"rmsnorm": run_rmsnorm, "fused_ffn": run_ffn,
+            "flash_attention": run_attention,
+            "finish_batch": run_finish_batch, "finish_batch_sizes": None}
+    ap.add_argument("--only", default=",".join(runs), metavar="WHAT,...",
+                    help=f"measure only these (of {', '.join(runs)})")
     args = ap.parse_args(argv)
+    only = args.only.split(",")
+    if not set(only) <= set(runs):
+        ap.error(f"unknown: {sorted(set(only) - set(runs))}")
     import torch
 
     if not torch.cuda.is_available():
@@ -258,9 +366,11 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     emit({"device": smi, "torch": torch.__version__, "src": str(src)})
-    run_rmsnorm(args.reps)
-    run_finish_batch(args.reps)
-    run_sizes()
+    for what in only:
+        if what == "finish_batch_sizes":
+            run_sizes()
+        else:
+            runs[what](args.reps)
     return 0
 
 

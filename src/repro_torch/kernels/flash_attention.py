@@ -62,7 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cannot be built or launched."""
     global launches
     _check_shapes("flash_attention", q, k, v)
-    _build.check_cuda_tensors("flash_attention", q, k, v, contiguous=False)
+    index = _build.check_cuda_tensors("flash_attention", q, k, v,
+                                      contiguous=False)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention expects the last dim of q, k, v "
                          "to be contiguous")
@@ -79,13 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"64, 128 and 256, not {d}")
     scale = scale or 1.0 / math.sqrt(d)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, k.shape[1], S, d, *strides, int(causal), int(window),
-            scale, code, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError_t {err}")
+    _build.launch(lib.flash_attention_launch, index, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+                  k.shape[1], S, d, *strides, int(causal), int(window),
+                  scale, code)
     launches += 1
     return out

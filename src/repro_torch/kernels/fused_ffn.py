@@ -55,22 +55,16 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
         raise ValueError(
             f"fused_swiglu expects wg, wi [d, f] and wo [f, d] for d = {d}, "
             f"got {list(wg.shape)}, {list(wi.shape)}, {list(wo.shape)}")
-    _build.check_cuda_tensors("fused_swiglu", x, wg, wi, wo)
+    index = _build.check_cuda_tensors("fused_swiglu", x, wg, wi, wo)
     code = _build.dtype_code("fused_swiglu", x)
     if not wg.dtype == wi.dtype == wo.dtype == x.dtype:
         raise ValueError("fused_swiglu expects x and the weights in one dtype")
     out = torch.empty_like(x)
     if m == 0:
         return out
-    lib = _build.load("fused_ffn")
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.fused_ffn_launch(
-            x.data_ptr(), wg.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-            h.data_ptr(), out.data_ptr(), m, d, f, code,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_ffn kernel launch failed: cudaError_t {err}")
+    _build.launch(_build.load("fused_ffn").fused_ffn_launch, index,
+                  x.data_ptr(), wg.data_ptr(), wi.data_ptr(), wo.data_ptr(),
+                  h.data_ptr(), out.data_ptr(), m, d, f, code)
     launches += 1
     return out

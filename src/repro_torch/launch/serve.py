@@ -7,10 +7,13 @@
 Same flags as the JAX package's ``repro.launch.serve``, plus ``--device``
 (default ``cuda``; without a GPU it prints ``error: ...`` and exits 2, it
 never carries on on the CPU).  Weights are random, drawn from ``--seed`` on
-the device.  Decoder-only archs whose blocks the port has are served; the
-others exit 2 naming their ROADMAP item.  Besides the JAX driver's output
-it prints one ``group: {json}`` line per batch: batch, prompt length, time
-to the first tokens on the host and decode tokens/s.
+the device.  Decoder-only archs whose blocks the port has are served (all
+but deepseek-v2-236b's MLA and xlstm-350m's mLSTM/sLSTM); the others exit 2
+naming their ROADMAP item.  jamba-v0.1-52b at full depth (52 B parameters,
+~104 GB in bf16) does not fit one 80 GB card; its smoke config does.
+Besides what ``repro.launch.serve`` prints, it prints one
+``group: {json}`` line per batch: batch, prompt length, time to the first
+tokens on the host and decode tokens/s.
 """
 
 from __future__ import annotations
@@ -30,6 +33,18 @@ from repro_torch.models.lm import check_decoder
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 
+def make_requests(cfg, requests: int, prompt_len: int, new_tokens: int,
+                  seed: int) -> List[Request]:
+    """``requests`` prompts of ``prompt_len`` tokens of ``cfg``'s vocab,
+    drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab, prompt_len)
+                    .astype(np.int32),
+                    max_new_tokens=new_tokens)
+            for i in range(requests)]
+
+
 def make_run(arch: str, smoke: bool, requests: int, prompt_len: int,
              new_tokens: int, max_batch: int, seed: int, device):
     """What :func:`main` serves for these flags: the config, its random
@@ -41,12 +56,7 @@ def make_run(arch: str, smoke: bool, requests: int, prompt_len: int,
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     values = param_values(lm_init(cfg, gen, device))
-    rng = np.random.default_rng(seed)
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab, prompt_len)
-                    .astype(np.int32),
-                    max_new_tokens=new_tokens)
-            for i in range(requests)]
+    reqs = make_requests(cfg, requests, prompt_len, new_tokens, seed)
     scfg = ServeConfig(max_batch=max_batch,
                        max_len=prompt_len + new_tokens + 8)
     return cfg, values, reqs, scfg

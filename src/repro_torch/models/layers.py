@@ -1,5 +1,6 @@
-"""Functional layers of the port's model zoo: the attention and dense-FFN
-subset of the JAX package's ``repro.models.layers``.
+"""Functional layers of the port's model zoo: the attention, dense-FFN, MoE
+and Mamba layers of the JAX package's ``repro.models.layers`` (MLA, mLSTM
+and sLSTM wait for a later slice).
 
 Every ``*_init`` returns a tree of nested dicts whose leaves are
 :class:`Param` (value + logical axes); ``*_apply`` consumes the matching
@@ -7,16 +8,17 @@ Every ``*_init`` returns a tree of nested dicts whose leaves are
 A8); without a mesh the JAX package's ``shard(...)`` is a no-op, so the
 port has none.
 
-RMSNorm, the SwiGLU FFN and, where its contract holds, attention go through
-:mod:`repro_torch.kernels.ops`: the hand-written CUDA kernels on a CUDA
-tensor, their plain torch versions on a CPU tensor.  Which route a call
-takes depends on shapes and flags only, never on the device.
+RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where its
+contract holds, attention go through :mod:`repro_torch.kernels.ops`: the
+hand-written CUDA kernels on a CUDA tensor, their plain torch versions on a
+CPU tensor.  Which route a call takes depends on shapes and flags only,
+never on the device.
 
 Matrix products promote their operands to a common dtype as the JAX
 package's do (a bf16 activation against an fp32 cache gives fp32), so the
 port follows the reference under any mix of compute and cache dtypes.
-Caches are updated in place (JAX returns new arrays; the port writes the
-same slots of the same tensors and returns the dict).
+Caches and Mamba states are updated in place (JAX returns new arrays; the
+port writes the same slots of the same tensors and returns the dict).
 """
 
 from __future__ import annotations
@@ -85,6 +87,10 @@ def _init(gen: torch.Generator, shape, axes, scale=None,
 
 def _ones(shape, axes, dtype=torch.float32, device=None) -> Param:
     return Param(torch.ones(shape, dtype=dtype, device=device), axes)
+
+
+def _zeros(shape, axes, dtype=torch.float32, device=None) -> Param:
+    return Param(torch.zeros(shape, dtype=dtype, device=device), axes)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -360,6 +366,189 @@ def ffn_apply(params, x, act: str = "silu"):
     h = F.gelu(_mm(x, params["wg"]), approximate="tanh") * _mm(
         x, params["wi"])
     return _mm(h, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """The router is fp32 whatever ``dtype`` is, as in the reference."""
+    d, e, dff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    p = {
+        "router": _init(gen, (d, e), ("embed", None), device=device),
+        "wi": _init(gen, (e, d, dff), ("expert", "fsdp", "ff"), dtype=dtype,
+                    device=device),
+        "wg": _init(gen, (e, d, dff), ("expert", "fsdp", "ff"), dtype=dtype,
+                    device=device),
+        "wo": _init(gen, (e, dff, d), ("expert", "ff", "fsdp"), dtype=dtype,
+                    device=device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(gen, d, dff * cfg.n_shared_experts, dtype,
+                               device)
+    return p
+
+
+def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
+    """x: [B, S, d] -> (out [B, S, d], Switch aux loss, fp32 scalar).
+
+    The reference's per-sequence capacity dispatch: each sequence gives
+    every expert ``C`` slots; the ``k`` choices of its tokens, sorted
+    stably by expert, take an expert's slots in token order, and those
+    past ``C`` are dropped.  The slots are laid out expert-major,
+    ``[E, B, C, d]``, so that each expert's ``B * C`` rows are one
+    contiguous ``[B*C, d]`` block: with ``act="silu"`` each goes through
+    ``ops.swiglu`` (B3 on a CUDA tensor), every expert every call, as the
+    reference computes its dense buffer.  GeLU experts stay plain torch."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = max(1, int(cfg.capacity_factor * k * S / E))
+    BC = B * C
+
+    logits = _mm(x.float(), params["router"])                # [B,S,E]
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(gates, k, dim=-1)                # [B,S,k]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # aux load-balancing loss (Switch-style)
+    me = gates.mean(dim=(0, 1))                              # [E]
+    ce = F.one_hot(topi, E).sum(dim=2).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce) * cfg.router_aux_coef
+
+    flat_e = topi.reshape(B, S * k)
+    # stable, as jnp.argsort: the tie order decides who is dropped
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, sort_idx)
+    # rank within the expert's segment
+    pos = torch.arange(S * k, device=x.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    keep = pos < C
+    batch = torch.arange(B, device=x.device)[:, None]
+    # slot of each choice in the expert-major buffer; overflow -> E*B*C
+    dest = torch.where(keep, sorted_e * BC + batch * C + pos, E * BC)
+    tok = sort_idx // k                                      # source tokens
+    xs = torch.gather(x, 1, tok[..., None].expand(B, S * k, d))
+    ws = torch.gather(topv.reshape(B, S * k), 1, sort_idx)
+
+    buf = x.new_zeros((E * BC + 1, d)).index_add_(
+        0, dest.reshape(-1), xs.reshape(-1, d))[:-1]
+    xe = buf.view(E, BC, d)
+    if act == "silu":
+        dt = torch.promote_types(x.dtype, params["wg"].dtype)
+        xe = xe.to(dt)
+        wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
+        ys = [ops.swiglu(xe[e], wg[e], wi[e], wo[e]) for e in range(E)]
+    else:
+        h = F.gelu(_mm(xe, params["wg"]), approximate="tanh") * _mm(
+            xe, params["wi"])
+        ys = list(_mm(h, params["wo"]))
+    # a zero row for the dropped choices, as the reference pads
+    y = torch.cat(ys + [ys[0].new_zeros((1, d))])           # [E*B*C+1, d]
+
+    yc = y[dest.reshape(-1)] * (ws * keep).reshape(-1, 1).to(y.dtype)
+    out = x.new_zeros((B * S, d)).index_add_(
+        0, (batch * S + tok).reshape(-1), yc.to(x.dtype)).view(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + ffn_apply(params["shared"], x, act)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM): jamba's mixer
+# ---------------------------------------------------------------------------
+
+def mamba_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """``A_log`` is fp32 whatever ``dtype`` is, as in the reference."""
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dtr = max(1, math.ceil(d / 16))
+    a_log = torch.log(torch.arange(1.0, n + 1.0, device=device)).repeat(di, 1)
+    return {
+        "in_proj": _init(gen, (d, 2 * di), ("embed", "mamba_inner"),
+                         dtype=dtype, device=device),
+        "conv_w": _init(gen, (cfg.mamba_d_conv, di), ("conv", "mamba_inner"),
+                        scale=0.5, dtype=dtype, device=device),
+        "conv_b": _zeros((di,), ("mamba_inner",), dtype, device),
+        "x_proj": _init(gen, (di, dtr + 2 * n), ("mamba_inner", None),
+                        dtype=dtype, device=device),
+        "dt_proj": _init(gen, (dtr, di), (None, "mamba_inner"), dtype=dtype,
+                         device=device),
+        "dt_bias": _zeros((di,), ("mamba_inner",), dtype, device),
+        "A_log": Param(a_log, ("mamba_inner", None)),
+        "D": _ones((di,), ("mamba_inner",), dtype, device),
+        "out_proj": _init(gen, (di, d), ("mamba_inner", "embed"),
+                          dtype=dtype, device=device),
+    }
+
+
+def _causal_conv1d(u, w, b, state=None):
+    """u: [B,S,di]; w: [K,di] depthwise; state: [B,K-1,di] (decode).
+    Returns (out, new_state), new_state in ``u``'s dtype."""
+    K, S = w.shape[0], u.shape[1]
+    if state is not None:
+        u_pad = torch.cat([state.to(u.dtype), u], dim=1)
+    else:
+        u_pad = F.pad(u, (0, 0, K - 1, 0))
+    out = u_pad[:, :S] * w[0]
+    for i in range(1, K):
+        out = out + u_pad[:, i: i + S] * w[i]
+    return out + b, u_pad[:, -(K - 1):]
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): no threshold, unlike
+    ``F.softplus``."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
+    """Returns (out, state); ``state`` = {"conv": [B,K-1,di], "ssm":
+    [B,di,n] fp32}, written in place when given (a new dict otherwise).
+
+    The scan is the reference's recurrence ``h = a * h + b`` run in time
+    order from ``state["ssm"]`` (zeros without a state), for the cached and
+    the uncached call alike (the reference's uncached call takes an
+    associative scan of the same recurrence): one ``addcmul_`` a step,
+    writing each step's state over ``b`` in place, so ``[B,S,di,n]`` fp32
+    is held twice (``a`` and ``b``/the states), not three times."""
+    B, S, d = x.shape
+    di = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dtr = max(1, math.ceil(d / 16))
+
+    uz = _mm(x, params["in_proj"])
+    u, z = uz[..., :di], uz[..., di:]
+    u, conv_state = _causal_conv1d(u, params["conv_w"], params["conv_b"],
+                                   None if state is None else state["conv"])
+    u = F.silu(u)
+
+    xdbc = _mm(u, params["x_proj"])
+    dt = _softplus(_mm(xdbc[..., :dtr], params["dt_proj"])
+                   + params["dt_bias"]).float()
+    Bc = xdbc[..., dtr: dtr + n].float()                     # [B,S,n]
+    Cc = xdbc[..., dtr + n:].float()
+    A = -torch.exp(params["A_log"].float())                  # [di,n]
+
+    uf = u.float()
+    da = (dt[..., None] * A).exp_()                          # [B,S,di,n]
+    hs = (dt * uf)[..., None] * Bc[:, :, None, :]            # db, then h
+    prev = None if state is None else state["ssm"].float()
+    for t in range(S):
+        if prev is not None:
+            hs[:, t].addcmul_(da[:, t], prev)
+        prev = hs[:, t]
+    del da
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
+    y = y + uf * params["D"].float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = _mm(y, params["out_proj"])
+    if state is None:
+        return out, {"conv": conv_state.to(x.dtype), "ssm": prev.clone()}
+    state["conv"].copy_(conv_state)
+    state["ssm"].copy_(prev)
+    return out, state
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

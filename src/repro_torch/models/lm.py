@@ -120,10 +120,12 @@ def lm_apply(
     prefill: bool = False,
     last_only: bool = False,
 ):
-    """Returns (logits [B,S,V], caches, aux_loss).
+    """Returns (logits [B,S,V], caches, aux_loss); ``aux_loss`` is the sum
+    of the MoE layers' aux losses, an fp32 scalar on ``tokens``' device.
 
-    ``caches`` are written in place and returned.  ``prefill=True`` says
-    the caches are empty and the tokens sit at positions 0..S-1 (then
+    ``caches`` (attention rings and Mamba states) are written in place and
+    returned.  ``prefill=True`` says the caches are empty (Mamba starts
+    from the zero state) and the tokens sit at positions 0..S-1 (then
     ``positions`` must be None); with it, or with neither caches nor
     positions, attention over S > 1 tokens may take the flash-attention
     kernel (:func:`repro_torch.models.layers.attention_apply`).
@@ -150,13 +152,18 @@ def lm_apply(
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
 
+    # the reference's aux sum: an fp32 scalar on the device
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
     def layer(vals, li, cache):
+        # the cache (or Mamba state) is written in place: the scanned
+        # layers' caches are views into the stacked tensors
         nonlocal x, aux_total
         x, _, a = block_apply(tree_cast(vals, cdtype), cfg, specs[li], x,
                               positions, cache=cache, fresh=fresh)
-        aux_total += a
+        if a is not None:
+            aux_total = aux_total + a
 
-    aux_total = 0.0
     for j in range(pre):
         layer(values["pre"][f"q{j}"], j,
               None if caches is None else caches["pre"][f"q{j}"])
@@ -178,7 +185,7 @@ def lm_apply(
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
-    return logits.to(logits_dtype), caches, torch.tensor(aux_total)
+    return logits.to(logits_dtype), caches, aux_total
 
 
 # ---------------------------------------------------------------------------

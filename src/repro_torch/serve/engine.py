@@ -3,13 +3,15 @@ zoo (the JAX package's ``repro.serve.engine.ServeEngine``).
 
 Requests are grouped by prompt length (static batching with length
 bucketing); each group is prefilled in one batched forward that also fills
-the caches, then decoded synchronously with the reference's stop rule.
+the caches (attention rings, and Mamba's conv and SSM states for the
+hybrid archs), then decoded synchronously with the reference's stop rule.
 What differs from the reference, none of it in the tokens:
 
 * the parameters are cast to the compute dtype once, at construction (the
   reference's ``lm_apply`` casts them on every call; the values are the
-  same, the per-step copy is gone).  ``final_norm`` keeps its dtype, as the
-  reference reads it in fp32;
+  same, the per-step copy is gone), the fp32 MoE router and Mamba
+  ``A_log`` included, as the reference casts them.  ``final_norm`` keeps
+  its dtype, as the reference reads it in fp32;
 * the prefill computes the final norm and the head on the last position
   only, the one row the reference reads (``last_only``), and tells the
   model the caches are empty (``prefill``), which lets attention take the

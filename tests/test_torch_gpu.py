@@ -14,6 +14,8 @@ machine without them:
 * the smoke tinyllama served through the CUDA kernels and through their
   plain versions on the CPU gives the same greedy tokens, with each kernel
   launched as often as the model's structure implies;
+* the jamba (Mamba + MoE) and arctic (MoE) smoke forwards on the card
+  against the CPU, and B3 at jamba's width at decode;
 * B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results.
@@ -153,6 +155,41 @@ def test_engine_on_the_card_equals_the_cpu():
     assert flash_attention.launches == cfg.n_layers       # one prefill
     assert fused_ffn.launches == 6 * cfg.n_layers         # six forwards
     assert rmsnorm.launches == 6 * (2 * cfg.n_layers + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b"])
+def test_moe_and_hybrid_forwards_on_the_card_equal_the_cpu(arch):
+    """``chip_smoke.py``'s case: the fp32 smoke forward's logits within
+    1e-3 of the CPU's, the same experts chosen for every token at every
+    MoE call, one forward's launches, and equal greedy tokens."""
+    needs_gpu()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    out = chip_smoke._hybrid_vs_cpu_case(arch)
+    assert out["close"] and not out["rerouted"]
+
+
+@pytest.mark.gpu
+def test_ffn_at_jamba_width_at_decode():
+    """B3 at d 4096 x d_ff 14,336 (jamba's experts and dense FFNs) for a
+    batch-8 decode step, bf16, against its plain version."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    m, d, f = 8, 4096, 14336
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    x, wg, wi = rnd(m, d), rnd(d, f, scale=d ** -0.5), rnd(
+        d, f, scale=d ** -0.5)
+    wo = rnd(f, d, scale=f ** -0.5)
+    assert _close(ff.fused_swiglu(x, wg, wi, wo),
+                  ff.swiglu_plain(x, wg, wi, wo))
 
 
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}

@@ -9,7 +9,8 @@
 * ``finish_cost_batch`` on the CPU, bitwise against the reference's
   ``vector`` backend, and owning its results.
 * The shared launch path's checks (device, contiguity, dtype), which raise
-  ``ValueError`` before anything is launched.
+  ``ValueError`` before anything is launched; and B2's and B3's wrappers
+  handing their launches to it, as B1's and B4's do.
 
 The kernels themselves run only on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
@@ -130,3 +131,39 @@ def test_fused_rmsnorm_refuses_what_the_kernel_does_not_take(case):
     with pytest.raises(ValueError, match="scale"):
         rn.fused_rmsnorm(x, torch.zeros(7, device=x.device))
     assert rn.launches == before
+
+
+def test_b2_and_b3_launch_through_the_launch_helper(monkeypatch):
+    """B3's and B2's wrappers hand their C entry point, the device index
+    the checks return and the entry's arguments but the stream to
+    ``_build.launch`` (which adds the raw stream handle and switches
+    devices only when needed), and count one launch each.  Run on CPU
+    tensors with the checks, the library and the launch stubbed."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+
+    calls = []
+    lib = SimpleNamespace(fused_ffn_launch="ffn_entry",
+                          flash_attention_launch="attn_entry",
+                          flash_attention_supports=lambda d: 1)
+    monkeypatch.setattr(_build, "check_cuda_tensors",
+                        lambda name, *t, contiguous=True: 3)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "launch",
+                        lambda entry, index, *args: calls.append(
+                            (entry, index, args)))
+    before = ff.launches, fa.launches
+    ff.fused_swiglu(torch.zeros(5, 8), torch.zeros(8, 12),
+                    torch.zeros(8, 12), torch.zeros(12, 8))
+    q, k = torch.zeros(1, 4, 6, 16), torch.zeros(1, 2, 6, 16)
+    fa.flash_attention(q, k, k)
+    assert [c[:2] for c in calls] == [("ffn_entry", 3), ("attn_entry", 3)]
+    assert calls[0][2][-4:] == (5, 8, 12, 0)  # m, d, f, fp32
+    for (_, _, args), (lib_name, entry) in zip(calls, [
+            ("fused_ffn", "fused_ffn_launch"),
+            ("flash_attention", "flash_attention_launch")]):
+        argtypes = _build._SIGNATURES[lib_name][entry][0]
+        assert len(args) == len(argtypes) - 1  # all but the stream
+    assert (ff.launches, fa.launches) == (before[0] + 1, before[1] + 1)

@@ -1,11 +1,13 @@
-"""The port's model zoo (attention + dense-FFN subset) against the JAX
-package's, on the CPU, with the reference's own seeded parameters carried
-over by :func:`repro_torch.bridge.lm_params_from_reference`.
+"""The port's model zoo (attention, dense-FFN, MoE and Mamba layers)
+against the JAX package's, on the CPU, with the reference's own seeded
+parameters carried over by :func:`repro_torch.bridge.lm_params_from_reference`.
 
 Tolerances: fp32 2e-5 for one layer (the two frameworks sum in other
-orders); 1e-4 for the logits of a whole smoke LM (those differences pass
-through 4 layers and a 256-way head, on activations of unit scale); the
-decode-equals-prefill tolerance of ``tests/test_models_smoke.py``.
+orders; Mamba's scan runs in time order in the port, where the
+reference's uncached call takes an associative scan of the same
+recurrence); 1e-4 for the logits of a whole smoke LM (those differences
+pass through 4 layers and a 256-way head, on activations of unit scale);
+the decode-equals-prefill tolerance of ``tests/test_models_smoke.py``.
 """
 
 import pytest
@@ -32,7 +34,7 @@ from repro_torch.models.layers import tree_map  # noqa: E402
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("tinyllama-1.1b", "gemma3-4b")
+ARCHS = ("tinyllama-1.1b", "gemma3-4b", "jamba-v0.1-52b", "arctic-480b")
 
 
 def rand(shape, seed, scale=1.0):
@@ -191,13 +193,129 @@ def test_layer_ffn_matches(act):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+def _moe_params(arch, seed, **overrides):
+    jcfg = jax_get_config(arch, smoke=True).with_(**overrides)
+    p = jax_param_values(jl.moe_init(jax.random.PRNGKey(seed), jcfg))
+    return (jcfg, get_config(arch, smoke=True).with_(**overrides), p,
+            lm_params_from_reference(np_tree(p)))
+
+
+@pytest.mark.parametrize("arch,overrides,act", [
+    ("arctic-480b", {}, "silu"), ("deepseek-v2-236b", {}, "silu"),
+    ("arctic-480b", {"capacity_factor": 0.5}, "silu"),
+    ("arctic-480b", {}, "gelu")],
+    ids=["arctic", "deepseek-shared", "arctic-drops", "arctic-gelu"])
+def test_layer_moe_apply_matches(arch, overrides, act):
+    """Out and aux of the sort-based capacity dispatch: Arctic's smoke MoE,
+    deepseek's (a shared expert), a capacity factor of 0.5, where every
+    sequence overflows some expert and the stable tie order of the sort
+    decides which of its tokens are dropped, and GeLU experts (plain
+    torch, where SwiGLU experts take ``ops.swiglu``)."""
+    jcfg, cfg, jp, tp = _moe_params(arch, 4, **overrides)
+    x = rand((2, 12, cfg.d_model), 11)
+    want, want_aux = jl.moe_apply(jp, jcfg, jnp.asarray(x), act)
+    got, aux = tl.moe_apply(tp, cfg, torch.from_numpy(x), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(want_aux), **F32)
+    if overrides:
+        roomy, _ = tl.moe_apply(tp, cfg.with_(capacity_factor=4.0),
+                                torch.from_numpy(x), act)
+        assert not torch.allclose(roomy, got)  # tokens were dropped
+
+
+def _mamba_params(seed):
+    jcfg = jax_get_config("jamba-v0.1-52b", smoke=True)
+    p = jax_param_values(jl.mamba_init(jax.random.PRNGKey(seed), jcfg))
+    return (jcfg, get_config("jamba-v0.1-52b", smoke=True), p,
+            lm_params_from_reference(np_tree(p)))
+
+
+@pytest.mark.parametrize("S,cached", [(12, False), (1, True), (7, True)],
+                         ids=["uncached", "one-step", "chunk-of-7"])
+def test_layer_mamba_apply_matches(S, cached):
+    """Out and new state of the selective scan: uncached (the reference's
+    associative scan), and from a random state for one decode step and for
+    a 7-token chunk (its sequential scan).  The port writes the state in
+    place, into the tensors it was given."""
+    jcfg, cfg, jp, tp = _mamba_params(5)
+    di = cfg.mamba_expand * cfg.d_model
+    x = rand((2, S, cfg.d_model), 12)
+    state = None
+    if cached:
+        state = {"conv": rand((2, cfg.mamba_d_conv - 1, di), 13),
+                 "ssm": rand((2, di, cfg.mamba_d_state), 14)}
+    want, want_state = jl.mamba_apply(
+        jp, jcfg, jnp.asarray(x),
+        None if state is None else jax.tree.map(jnp.asarray, state))
+    tstate = None if state is None else {
+        k: torch.from_numpy(v.copy()) for k, v in state.items()}
+    got, got_state = tl.mamba_apply(tp, cfg, torch.from_numpy(x), tstate)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    if cached:
+        assert got_state is tstate
+    for key in ("conv", "ssm"):
+        assert got_state[key].dtype == torch.float32
+        np.testing.assert_allclose(got_state[key].numpy(),
+                                   np.asarray(want_state[key]), **F32)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_layer_causal_conv1d_matches(with_state):
+    u, w, b = rand((2, 5, 24), 15), rand((4, 24), 16, 0.5), rand((24,), 17)
+    state = rand((2, 3, 24), 18) if with_state else None
+    want, want_state = jl._causal_conv1d(
+        jnp.asarray(u), jnp.asarray(w), jnp.asarray(b),
+        None if state is None else jnp.asarray(state))
+    got, got_state = tl._causal_conv1d(
+        *(torch.from_numpy(a) for a in (u, w, b)),
+        None if state is None else torch.from_numpy(state))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(got_state.numpy(), np.asarray(want_state),
+                               **F32)
+
+
+def test_router_and_a_log_are_fp32_in_a_bf16_model():
+    """As in the reference, ``moe/router`` and ``mixer/A_log`` are fp32
+    parameters whatever the parameter dtype; every other floating leaf
+    has it.  The reference's ``lm_apply`` casts them all to the compute
+    dtype, as the port's ``tree_cast`` does."""
+    jcfg = jax_get_config("jamba-v0.1-52b", smoke=True).with_(
+        param_dtype="bfloat16")
+    cfg = get_config("jamba-v0.1-52b", smoke=True).with_(
+        param_dtype="bfloat16")
+    jtree = jax.eval_shape(lambda: jax_param_values(
+        jax_lm_init(jax.random.PRNGKey(0), jcfg)))
+    want = {jax.tree_util.keystr(path): str(leaf.dtype) for path, leaf in
+            jax.tree_util.tree_flatten_with_path(jtree)[0]}
+    port = param_values(lm_init(cfg, torch.Generator().manual_seed(0)))
+    got = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}['{k}']")
+        else:
+            got[key] = str(node.dtype).removeprefix("torch.")
+
+    walk(port, "")
+    assert got == want
+    assert got["['scan']['p0']['moe']['router']"] == "float32"
+    assert got["['scan']['p0']['mixer']['A_log']"] == "float32"
+    cast = tl.tree_cast(port, torch.bfloat16)
+    assert cast["scan"]["p0"]["moe"]["router"].dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_apply_logits_match(lms, arch):
     cfg, jcfg, jvals, tvals = lms[arch]
     tokens = np.random.default_rng(9).integers(0, cfg.vocab, (2, 32))
-    want, _, _ = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens))
+    want, _, want_aux = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens))
     got, caches, aux = lm_apply(tvals, cfg, torch.from_numpy(tokens))
-    assert caches is None and float(aux) == 0.0
+    assert caches is None and aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(want_aux), **F32)
+    if not cfg.n_experts:
+        assert float(aux) == 0.0
     assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
     last, _, _ = lm_apply(tvals, cfg, torch.from_numpy(tokens),
@@ -206,12 +324,25 @@ def test_lm_apply_logits_match(lms, arch):
                                **F32)
 
 
+def _leaves(tree, prefix=""):
+    """``{keystr: tensor or array}`` of a nested dict."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for key, sub in tree.items()
+            for k, v in _leaves(sub, f"{prefix}['{key}']").items()}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(lms, arch):
     """Token-by-token decode through the caches against the full forward
-    (``tests/test_models_smoke.py:102``), and the cached prefill against
-    the reference's."""
+    (``tests/test_models_smoke.py:102``; MoE with a capacity factor of
+    ``n_experts``, so that no token drops in either), and the cached
+    prefill against the reference's, every cache leaf included (Mamba's
+    conv and ssm states)."""
     cfg, jcfg, jvals, tvals = lms[arch]
+    if cfg.n_experts:
+        cfg = cfg.with_(capacity_factor=float(cfg.n_experts))
+        jcfg = jcfg.with_(capacity_factor=float(cfg.n_experts))
     B, S = 2, 32
     tokens = torch.from_numpy(
         np.random.default_rng(10).integers(0, cfg.vocab, (B, S)))
@@ -234,8 +365,12 @@ def test_decode_matches_prefill(lms, arch):
     tc = init_caches(cfg, B, S + 4, torch.float32)
     got, tc, _ = lm_apply(tvals, cfg, tokens[:, :P], caches=tc, prefill=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
-    np.testing.assert_allclose(tc["scan"]["p0"]["k"].numpy(),
-                               np.asarray(jc["scan"]["p0"]["k"]), **LM_TOL)
+    want_caches = _leaves(np_tree(jc))
+    got_caches = _leaves(tc)
+    assert got_caches.keys() == want_caches.keys()
+    for key, arr in want_caches.items():
+        np.testing.assert_allclose(got_caches[key].numpy(), arr,
+                                   err_msg=key, **LM_TOL)
 
 
 def test_prefill_takes_no_positions(lms):
@@ -247,8 +382,7 @@ def test_prefill_takes_no_positions(lms):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("xlstm-350m", "A3"), ("jamba-v0.1-52b", "A3"),
-    ("deepseek-v2-236b", "A3"), ("arctic-480b", "A3"),
+    ("xlstm-350m", "A3"), ("deepseek-v2-236b", "A3"),
     ("whisper-base", "A4")])
 def test_unported_kinds_raise_naming_their_roadmap_item(arch, item):
     cfg = get_config(arch, smoke=True)

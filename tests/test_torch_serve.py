@@ -3,14 +3,17 @@
 Greedy tokens must equal the JAX package's ``ServeEngine``'s, token for
 token, on the decoder cases of ``tests/test_serve.py`` (a single prompt,
 equal-length requests batched across groups, and gemma3's sliding-window
-ring cache past its wrap), with the reference's parameters carried over by
-the weight bridge.
+ring cache past its wrap) and on jamba's hybrid caches (Mamba states and
+an attention ring) and arctic's MoE, with the reference's parameters
+carried over by the weight bridge.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+
+import json  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -29,11 +32,14 @@ from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
 #  max_len): tests/test_serve.py:36, :46 and :59
 CASES = [("tinyllama-1.1b", 0, 1, 7, 6, 4, 64),
          ("tinyllama-1.1b", 1, 5, 5, 4, 3, 32),
-         ("gemma3-4b", 3, 1, 20, 8, 2, 48)]
+         ("gemma3-4b", 3, 1, 20, 8, 2, 48),
+         ("jamba-v0.1-52b", 2, 3, 9, 6, 2, 32),
+         ("arctic-480b", 4, 3, 10, 5, 2, 32)]
 
 
 @pytest.mark.parametrize("case", CASES,
-                         ids=["single", "batched", "ring-cache"])
+                         ids=["single", "batched", "ring-cache", "hybrid",
+                              "moe"])
 def test_greedy_tokens_equal_the_jax_engine(case):
     arch, seed, n, plen, new, max_batch, max_len = case
     jcfg = jax_get_config(arch, smoke=True)
@@ -122,6 +128,17 @@ def test_cli_serves_on_the_cpu(capsys):
     assert out[-1].startswith("12 tokens in ")
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b"])
+def test_cli_serves_the_moe_and_hybrid_archs_on_the_cpu(arch, capsys):
+    assert main(["--device", "cpu", "--arch", arch, "--smoke"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    reqs = [line for line in out if line.startswith("req ")]
+    assert len(reqs) == 6
+    assert all(len(json.loads(line.split(": ", 1)[1])) == 8
+               for line in reqs)
+    assert out[-1].startswith("48 tokens in ")
+
+
 def test_cli_cuda_without_a_gpu_exits_2(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
@@ -131,6 +148,7 @@ def test_cli_cuda_without_a_gpu_exits_2(capsys):
 
 
 @pytest.mark.parametrize("arch,item", [("xlstm-350m", "A3"),
+                                       ("deepseek-v2-236b", "A3"),
                                        ("whisper-base", "A4")])
 def test_cli_refuses_unported_archs(arch, item, capsys):
     assert main(["--device", "cpu", "--smoke", "--arch", arch]) == 2
