@@ -29,7 +29,13 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   bf16 with a bf16 cache, every expert through the fused SwiGLU kernel,
   launches held to the structure; the jamba and arctic smoke configs in
   fp32 on the card against the CPU (logits, router choices, greedy
-  tokens), and ``launch.serve`` on jamba's smoke config.
+  tokens), and ``launch.serve`` on jamba's smoke config;
+* MLA and the xLSTM mixers: deepseek-v2-236b at its published widths cut
+  to 4 layers (MLA's 128 heads through the flash-attention kernel, q/k and
+  v padded to 256 columns; 160 routed experts and 2 shared through the
+  fused SwiGLU kernel) and xlstm-350m at full width and depth, each served
+  as jamba is; both smoke configs in fp32 on the card against the CPU, and
+  ``launch.serve`` on each.
 
 Last it times every kernel beside its plain version, its bound and the
 library call where one computes the same function; a call that moves
@@ -117,7 +123,12 @@ LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 RMS_CASES = ((4096, 2048, 0), (800, 2048, 0), (8, 2048, 0), (4095, 2048, 0),
              (3, 200, 0), (4096, 64, 0), (4096, 128, 0), (300, 256, 0),
              (8, 5632, 0), (4, 20000, 0), (5, 2047, 0), (800, 2048, 1),
-             (8, 5632, 1), (4096, 4096, 0))
+             (8, 5632, 1), (4096, 4096, 0),
+             # deepseek's (d 5120, q_norm 1536, kv_norm 512) and xlstm's
+             # (d 1024, mLSTM out_norm 2048) at an 8 x 512 prefill and
+             # batch-8 decode
+             (4096, 5120, 0), (8, 5120, 0), (4096, 1536, 0), (8, 1536, 0),
+             (4096, 512, 0), (8, 512, 0), (4096, 1024, 0), (8, 1024, 0))
 # B3 at M on both sides of the small/large-M tile threshold (16) and of
 # the large tiles' 128 rows, the prefill and decode shapes, and a ragged
 # shape (no TMA: the small tiles at any M)
@@ -127,6 +138,17 @@ FFN_CASES = tuple((m, 2048, 5632) for m in (1, 4, 8, 16, 63, 64, 65, 129,
 # batch 8, one expert's rows at an 8 x 512 prefill (B * C = 8 * 80) and a
 # dense FFN's at that prefill
 JAMBA_FFN_CASES = tuple((m, 4096, 14336) for m in (8, 640, 4096))
+# B3 at deepseek-v2-236b's widths, bf16: an expert (d 5120, d_ff 1536) and
+# the dense first layer (d_ff 12,288); one expert's rows at an 8 x 512
+# prefill (B * C = 8 * 24), decode at batch 8 and the dense prefill's rows
+DEEPSEEK_FFN_CASES = tuple((m, 5120, f) for f in (1536, 12288)
+                           for m in (192, 8, 4096))
+# B2 under MLA's contract, (B, H, S, q/k width, v width, dtype): q and k
+# zero-padded from dh + rope to 256 columns (16 + 8 to 32 at the smoke
+# widths), v from its width, scale 1/sqrt(q/k width); deepseek's 8 x 512
+# prefill in bf16 and the smoke prefill in fp32
+MLA_ATTN_CASES = ((8, 128, 512, 192, 128, "bfloat16"),
+                  (1, 4, 64, 24, 16, "float32"))
 # (B, H, Hkv, S, d, causal, window): the serving shapes and ragged ones
 ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               (8, 32, 8, 512, 128, True, 0),  # jamba's attention
@@ -557,8 +579,20 @@ HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # hybrid_vs_cpu: the smoke configs of the hybrid and MoE archs in fp32, as
 # serve_vs_cpu; then launch.serve.main at its defaults on jamba's
 HYBRID_VS_CPU_ARCHS = ("jamba-v0.1-52b", "arctic-480b")
-HYBRID_CLI_ARGS = ("--device", "cuda", "--arch", "jamba-v0.1-52b",
-                   "--smoke")
+# serve_mla: deepseek-v2-236b at its published widths (d 5120, 128 heads,
+# q_lora 1536, kv_lora 512, rope 64, v 128; 160 experts top-6 at d_ff 1536,
+# 2 shared; first layer dense at d_ff 12,288; vocab 102,400) cut to 4 of
+# its 60 layers, the model's whole layout (a dense prefix layer and the
+# period-1 MoE body); at full depth its 236 B parameters, ~471 GB in bf16,
+# do not fit one 80 GB card.  serve_xlstm: xlstm-350m at full width and
+# depth (24 layers, d 1024, 4 heads, 18 mLSTM and 6 sLSTM).  Both bf16
+# with a bf16 cache, random weights from seed 0 drawn on the card, served
+# as SERVE_RUNS
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 4
+XLSTM_ARCH = "xlstm-350m"
+# mla_xlstm_vs_cpu: their smoke configs in fp32, as hybrid_vs_cpu; then
+# launch.serve.main at its defaults on each
+MLA_XLSTM_VS_CPU_ARCHS = (MLA_ARCH, XLSTM_ARCH)
 
 
 def _lm_counters():
@@ -633,26 +667,31 @@ def _serve_cli(args, n, new_tokens, vocab) -> tuple:
 
 
 def _per_forward(cfg) -> dict:
-    """Launches of each kernel in one forward of ``cfg`` (attention: in a
-    prefill of more than one token; decode attends over the cache in
-    plain torch): per layer one norm before the mixer, one before the FFN
-    if it has one, 2 more for qk-norm; the final norm; the fused SwiGLU
-    once for a dense FFN, once for each expert of a MoE (every expert,
-    every call), once for its shared experts and once for Arctic's dense
-    residual FFN."""
-    from repro_torch.models.config import (ATTN, ATTN_LOCAL, FFN_DENSE,
-                                           FFN_MOE, FFN_MOE_RESIDUAL,
-                                           FFN_NONE)
+    """Launches of each kernel in one forward of ``cfg`` (attention and
+    MLA: in a prefill of more than one token; decode attends over the
+    cache in plain torch): per layer one norm before the mixer, one before
+    the FFN if it has one, 2 more for qk-norm, MLA's ``kv_norm`` and
+    ``q_norm`` (with a q LoRA), mLSTM's and sLSTM's ``out_norm``; the
+    final norm; the fused SwiGLU once for a dense FFN, once for each
+    expert of a MoE (every expert, every call), once for its shared
+    experts and once for Arctic's dense residual FFN."""
+    from repro_torch.models.config import (ATTN, ATTN_LOCAL, ATTN_MLA,
+                                           FFN_DENSE, FFN_MOE,
+                                           FFN_MOE_RESIDUAL, FFN_NONE,
+                                           MLSTM, SLSTM)
 
     specs = cfg.block_specs()
     moe = cfg.n_experts + (1 if cfg.n_shared_experts else 0)
     ffn = {FFN_DENSE: 1, FFN_MOE: moe, FFN_MOE_RESIDUAL: moe + 1,
            FFN_NONE: 0}
     attn = sum(s.mixer in (ATTN, ATTN_LOCAL) for s in specs)
+    mla = sum(s.mixer == ATTN_MLA for s in specs)
+    lstm = sum(s.mixer in (MLSTM, SLSTM) for s in specs)
     return {"rmsnorm": sum(1 + (s.ffn != FFN_NONE) for s in specs) + 1
-            + 2 * attn * cfg.qk_norm,
+            + 2 * attn * cfg.qk_norm + mla * (1 + bool(cfg.q_lora_rank))
+            + lstm,
             "fused_ffn": sum(ffn[s.ffn] for s in specs),
-            "flash_attention": attn}
+            "flash_attention": attn + mla}
 
 
 def _structural(cfg, groups) -> dict:
@@ -850,19 +889,19 @@ def _serve_hybrid(cfg, values, n: int, prompt_len: int) -> tuple:
         max_batch=SERVE_MAX_BATCH, max_len=prompt_len + SERVE_NEW_TOKENS + 8))
 
 
-def phase_serve_hybrid(device: dict) -> dict:
-    """jamba-v0.1-52b's 8-layer slice at full width (:data:`HYBRID_ARCH`),
-    served as ``serve`` serves tinyllama: both runs with every kernel's
-    launch count set to 0 before and read after and held to the
-    structure, both again warm with the same greedy tokens, then the
-    8 x 512 run under ``torch.profiler``."""
+def _serve_slice(phase: str, cfg, device: dict) -> dict:
+    """``cfg`` at full width (random bf16 weights from seed 0 drawn on the
+    card), served as ``serve`` serves tinyllama: both runs of
+    :data:`SERVE_RUNS` with every kernel's launch count set to 0 before
+    and read after and held to the structure, both again warm with the
+    same greedy tokens, then the 8 x 512 run under ``torch.profiler``."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import lm_init, param_values
     from repro_torch.models.layers import tree_map
 
-    cfg = get_config(HYBRID_ARCH).with_(n_layers=HYBRID_LAYERS)
     t0 = time.perf_counter()
     values = param_values(lm_init(
         cfg, torch.Generator(device="cuda").manual_seed(SERVE_SEED), "cuda"))
@@ -888,29 +927,27 @@ def phase_serve_hybrid(device: dict) -> dict:
     groups = [g for _, gs in runs for g in gs]
     expected = _structural(cfg, groups)
     for g in groups:
-        emit({"phase": "serve_hybrid", "pass": "first", "group": g})
+        emit({"phase": phase, "pass": "first", "group": g})
     warm = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
     for _, gs in warm:
         for g in gs:
-            emit({"phase": "serve_hybrid", "pass": "warm", "group": g})
+            emit({"phase": phase, "pass": "warm", "group": g})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     same_tokens = [t for t, _ in runs] == [t for t, _ in warm]
     traced, trace = _traced(
         lambda: _serve_hybrid(cfg, values, *SERVE_RUNS[0]))
     for g in traced[1]:
-        emit({"phase": "serve_hybrid", "pass": "traced", "group": g})
+        emit({"phase": phase, "pass": "traced", "group": g})
     del values
     torch.cuda.empty_cache()
     specs = cfg.block_specs()
     out = {
-        "phase": "serve_hybrid", "device": device["nvidia_smi"],
-        "arch": HYBRID_ARCH, "n_layers": cfg.n_layers,
+        "phase": phase, "device": device["nvidia_smi"],
+        "arch": cfg.name, "n_layers": cfg.n_layers,
         "layers": [f"{s.mixer}+{s.ffn}" for s in specs],
-        "d_model": cfg.d_model, "n_experts": cfg.n_experts,
-        "top_k": cfg.top_k, "d_ff_expert": cfg.d_ff_expert,
-        "mamba_inner": cfg.mamba_expand * cfg.d_model,
-        "mamba_d_state": cfg.mamba_d_state, "vocab": cfg.vocab,
-        "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
+        "config": dataclasses.asdict(cfg),
+        "params": n_params, "param_count": cfg.param_count(),
+        "weights_gb": weights_gb, "init_s": init_s,
         "seed": SERVE_SEED, "max_batch": SERVE_MAX_BATCH,
         "new_tokens": SERVE_NEW_TOKENS, "cache_dtype": "bfloat16",
         "runs": [list(r) for r in SERVE_RUNS], "wall_s": wall,
@@ -926,11 +963,36 @@ def phase_serve_hybrid(device: dict) -> dict:
     }
     emit(out)
     if launches != expected:
-        raise AssertionError(f"serve_hybrid launches {launches} != "
+        raise AssertionError(f"{phase} launches {launches} != "
                              f"structural {expected}")
     if not same_tokens or not out["tokens_equal_traced_first"]:
-        raise AssertionError("serve_hybrid: the passes gave other tokens")
+        raise AssertionError(f"{phase}: the passes gave other tokens")
     return out
+
+
+def phase_serve_hybrid(device: dict) -> dict:
+    """jamba-v0.1-52b's 8-layer slice at full width (:data:`HYBRID_ARCH`)
+    through :func:`_serve_slice`."""
+    from repro_torch.configs import get_config
+
+    return _serve_slice("serve_hybrid", get_config(HYBRID_ARCH).with_(
+        n_layers=HYBRID_LAYERS), device)
+
+
+def phase_serve_mla(device: dict) -> dict:
+    """deepseek-v2-236b's 4 layers at full width (:data:`MLA_ARCH`)
+    through :func:`_serve_slice`."""
+    from repro_torch.configs import get_config
+
+    return _serve_slice("serve_mla", get_config(MLA_ARCH).with_(
+        n_layers=MLA_LAYERS), device)
+
+
+def phase_serve_xlstm(device: dict) -> dict:
+    """xlstm-350m at full width and depth through :func:`_serve_slice`."""
+    from repro_torch.configs import get_config
+
+    return _serve_slice("serve_xlstm", get_config(XLSTM_ARCH), device)
 
 
 class _RouterChoices:
@@ -963,7 +1025,7 @@ class _RouterChoices:
         blocks.moe_apply = self._inner
 
 
-def _hybrid_vs_cpu_case(arch: str) -> dict:
+def _hybrid_vs_cpu_case(arch: str, phase: str = "hybrid_vs_cpu") -> dict:
     """``arch``'s smoke config in fp32 from ``launch.serve.make_run`` (one
     64-token prompt, the weights drawn on the CPU and copied to the card):
     the uncached forward's logits on the card within
@@ -1009,7 +1071,7 @@ def _hybrid_vs_cpu_case(arch: str) -> dict:
                                            max_new_tokens=8)])[0]
 
     card_tokens, cpu_tokens = greedy(on_card), greedy(values)
-    out = {"phase": "hybrid_vs_cpu", "arch": arch, "compute_dtype":
+    out = {"phase": phase, "arch": arch, "compute_dtype":
            cfg.compute_dtype, "layers": [f"{s.mixer}+{s.ffn}"
                                          for s in cfg.block_specs()],
            "logits_shape": list(got.shape), "max_abs_err": err,
@@ -1037,23 +1099,41 @@ def phase_hybrid_vs_cpu() -> dict:
     """:func:`_hybrid_vs_cpu_case` for each of :data:`HYBRID_VS_CPU_ARCHS`;
     then ``launch.serve.main`` at its defaults on jamba's smoke config
     (the reference's fp32 cache), its launches held to the structure."""
+    cases = [_hybrid_vs_cpu_case(arch) for arch in HYBRID_VS_CPU_ARCHS]
+    return {"cases": cases, "cli": _smoke_cli("hybrid_vs_cpu", HYBRID_ARCH)}
+
+
+def _smoke_cli(phase: str, arch: str) -> dict:
+    """``launch.serve.main`` at its defaults on ``arch``'s smoke config on
+    the card (the reference's fp32 cache: B2 and B3 take their fp32
+    routes), its launches held to the structure."""
     from repro_torch.configs import get_config
 
-    cases = [_hybrid_vs_cpu_case(arch) for arch in HYBRID_VS_CPU_ARCHS]
+    args = ("--device", "cuda", "--arch", arch, "--smoke")
     counters = _lm_counters()
     for mod in counters.values():
         mod.launches = 0
-    cfg = get_config(HYBRID_ARCH, smoke=True)
-    _, groups = _serve_cli(HYBRID_CLI_ARGS, 6, 8, cfg.vocab)
+    cfg = get_config(arch, smoke=True)
+    _, groups = _serve_cli(args, 6, 8, cfg.vocab)
     launches = {lib: mod.launches for lib, mod in counters.items()}
-    cli = {"phase": "hybrid_vs_cpu", "args": list(HYBRID_CLI_ARGS),
-           "groups": groups, "launches": launches,
+    cli = {"phase": phase, "args": list(args), "groups": groups,
+           "launches": launches,
            "expected_launches": _structural(cfg, groups)}
     emit(cli)
     if launches != cli["expected_launches"]:
-        raise AssertionError(f"serve {HYBRID_CLI_ARGS}: launches {launches}"
-                             f" != structural {cli['expected_launches']}")
-    return {"cases": cases, "cli": cli}
+        raise AssertionError(f"serve {args}: launches {launches} != "
+                             f"structural {cli['expected_launches']}")
+    return cli
+
+
+def phase_mla_xlstm_vs_cpu() -> dict:
+    """:func:`_hybrid_vs_cpu_case` for deepseek's and xlstm's smoke configs
+    (MLA's prefill through B2 padded to 32 columns in fp32), then
+    ``launch.serve`` at its defaults on each."""
+    cases = [_hybrid_vs_cpu_case(arch, "mla_xlstm_vs_cpu")
+             for arch in MLA_XLSTM_VS_CPU_ARCHS]
+    return {"cases": cases, "cli": [_smoke_cli("mla_xlstm_vs_cpu", arch)
+                                    for arch in MLA_XLSTM_VS_CPU_ARCHS]}
 
 
 # -- LM kernels ---------------------------------------------------------------
@@ -1090,6 +1170,23 @@ def _attn_inputs(b, h, hkv, s, d, dtype, seed):
             _randn((b, s, hkv, d), dtype, seed + 2).transpose(1, 2))
 
 
+def _mla_attn_inputs(b, h, s, dqk, dv, dtype, seed):
+    """MLA's B2 inputs: q, k ``[B, S, H, dqk]`` and v ``[B, S, H, dv]`` as
+    the model holds them, zero-padded to the kernel's width and handed
+    over as ``[B, H, S, width]`` views, then the unpadded q, k, v as
+    ``[B, H, S, d]`` views; and the scale ``1/sqrt(dqk)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    width = next(w for w in HEAD_DIMS if w >= max(dqk, dv))
+    raw = [_randn((b, s, h, d), dtype, seed + i)
+           for i, d in enumerate((dqk, dqk, dv))]
+    padded = [F.pad(t, (0, width - t.shape[-1])).transpose(1, 2)
+              for t in raw]
+    return (*padded, *(t.transpose(1, 2) for t in raw)), dqk ** -0.5
+
+
 def _lm_calls():
     """(kernel library, case, kernel call, plain call) for every case of
     the kernel-against-plain phase, in both dtypes."""
@@ -1099,6 +1196,20 @@ def _lm_calls():
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import rmsnorm as rn
 
+    for i, (b, h, s_len, dqk, dv, tname) in enumerate(MLA_ATTN_CASES):
+        dtype = getattr(torch, tname)
+        args, scale = _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 90 + i)
+        yield ("flash_attention",
+               {"b": b, "h": h, "hkv": h, "s": s_len, "d": args[0].shape[-1],
+                "mla": {"qk": dqk, "v": dv}, "scale": scale, "causal": True,
+                "window": 0}, dtype,
+               lambda a=args[:3], sc=scale: fa.flash_attention(*a, scale=sc),
+               lambda a=args[:3], sc=scale: fa.attention_plain(*a, scale=sc))
+    for i, (m, d, f) in enumerate(DEEPSEEK_FFN_CASES):
+        args = _ffn_inputs(m, d, f, torch.bfloat16, 100 + 4 * i)
+        yield ("fused_ffn", {"m": m, "d": d, "f": f}, torch.bfloat16,
+               lambda a=args: ff.fused_swiglu(*a),
+               lambda a=args: ff.swiglu_plain(*a))
     for dtype in (torch.bfloat16, torch.float32):
         for i, (m, d, off) in enumerate(RMS_CASES):
             args = _rms_inputs(m, d, dtype, 10 + i, off)
@@ -1129,8 +1240,10 @@ def _lm_calls():
 
 def phase_lm_kernels_vs_plain() -> dict:
     """Each LM kernel against its plain torch version on the same card
-    tensors: at the serving path's shapes (tinyllama's and jamba's; B3 at
-    jamba's width in bf16 only) and at ragged ones, in bf16
+    tensors: at the serving path's shapes (tinyllama's, jamba's,
+    deepseek's and xlstm's; B3 at jamba's and deepseek's widths and B2
+    under MLA's padded contract at deepseek's in bf16 only, B2 at the MLA
+    smoke shape in fp32 only) and at ragged ones, in bf16
     (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
     ``tests/test_kernels.py``.  Returns the largest absolute error of each
     kernel, by dtype."""
@@ -1221,7 +1334,7 @@ COLD_MIN_BYTES = 4 << 20
 
 
 def _timing_row(lib, shape, make, kernel, plain, library, nbytes, ops, reps,
-                dtype="bfloat16", composite=None) -> dict:
+                dtype="bfloat16", composite=None, extra=None) -> dict:
     """Times of one kernel at one shape: between CUDA events back to back,
     device time from the profiler, its plain version, the library call
     (events, and its kernels' device time) and a composite of library calls
@@ -1237,7 +1350,8 @@ def _timing_row(lib, shape, make, kernel, plain, library, nbytes, ops, reps,
     from device memory; those figures are the row's ``ms``,
     ``device_ms``, ``library_ms``, ``library_device_ms`` and
     ``composite_ms``, and the back-to-back figures on one set are kept as
-    the same names with ``_hot`` (the only figures of a smaller row)."""
+    the same names with ``_hot`` (the only figures of a smaller row).
+    ``extra`` is merged into the row."""
     names = LM_KERNELS[lib][2]
 
     def times(sets):
@@ -1261,18 +1375,125 @@ def _timing_row(lib, shape, make, kernel, plain, library, nbytes, ops, reps,
     else:
         cold = hot
     plain_ms = _events_ms(plain, max(reps // 4, 3), (first,))
-    bytes_s = nbytes / HBM_BYTES_PER_S
-    ops_s = ops / (PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
-                   else PEAK_SCALAR_OPS_PER_S)
+    bound_ms, bound_by = _bound(nbytes, ops, dtype)
     row = {"phase": "lm_timing", "kernel": lib, **shape, "dtype": dtype,
            **cold, "plain_ms": plain_ms,
            "l2_cold": cold_sets > 0, "cold_sets": cold_sets,
            **{f"{k}_hot": v for k, v in hot.items()},
-           "bound_ms": max(bytes_s, ops_s) * 1e3,
-           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-           "bytes": nbytes, "ops": ops}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "ops": ops, **(extra or {})}
     emit(row)
     return row
+
+
+def _bound(nbytes, ops, dtype="bfloat16") -> tuple:
+    """The least time in ms for a call moving ``nbytes`` and doing ``ops``
+    operations: the larger of the bytes over the memory rate and the
+    operations over the peak rate of ``dtype`` (bf16: the tensor cores';
+    fp32: the rate outside them); and which of the two it is."""
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = ops / (PEAK_BF16_OPS_PER_S if dtype == "bfloat16"
+                   else PEAK_SCALAR_OPS_PER_S)
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def _sdpa_backends(q, k, v, scale) -> dict:
+    """Which backends of ``F.scaled_dot_product_attention`` take causal
+    attention over ``q``, ``k``, ``v``, and which of them the default call
+    took: those whose output equals the default call's bit for bit."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+
+    default = call()
+    runs, same = [], []
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                out = call()
+        except RuntimeError:
+            continue
+        runs.append(backend.name)
+        if torch.equal(out, default):
+            same.append(backend.name)
+    return {"sdpa_backends": runs, "sdpa_default_equals": same}
+
+
+def _mla_timing_rows() -> dict:
+    """B2, B3 and B4 at deepseek-v2-236b's and xlstm-350m's shapes
+    (``serve_mla``, ``serve_xlstm``).  B2 under MLA's contract
+    (:data:`MLA_ATTN_CASES`): the kernel on the padded q/k/v, its library
+    call ``F.scaled_dot_product_attention`` on the unpadded ones (with the
+    backends that take them, :func:`_sdpa_backends`), the bound from the
+    unpadded work (q/k 192 and v 128 wide; the padded work's bound beside
+    it).  B3 at an expert's and the dense layer's widths
+    (:data:`DEEPSEEK_FFN_CASES`), with the composite; B4 at the new norm
+    widths over an 8 x 512 prefill, with ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import rmsnorm as rn
+
+    bf16, rows = torch.bfloat16, {}
+    rows["flash_attention"] = []
+    for b, h, s_len, dqk, dv, tname in MLA_ATTN_CASES:
+        dtype = getattr(torch, tname)
+        first, scale = _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 111)
+        width = first[0].shape[-1]
+        pairs = b * h * s_len * (s_len + 1) // 2  # causal
+        nbytes = b * h * s_len * 2 * (dqk + dv) * dtype.itemsize
+        padded_bytes = b * h * s_len * 4 * width * dtype.itemsize
+
+        def sdpa(qp, kp, vp, q, k, v, scale=scale):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=scale)
+
+        rows["flash_attention"].append(_timing_row(
+            "flash_attention",
+            {"b": b, "h": h, "hkv": h, "s": s_len, "d": width,
+             "causal": True, "mla": {"qk": dqk, "v": dv}},
+            lambda i, b=b, h=h, s_len=s_len, dqk=dqk, dv=dv, dtype=dtype:
+            _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 111 + 6 * i)[0],
+            lambda qp, kp, vp, *_, scale=scale: fa.flash_attention(
+                qp, kp, vp, scale=scale),
+            lambda qp, kp, vp, *_, scale=scale: fa.attention_plain(
+                qp, kp, vp, scale=scale),
+            sdpa, nbytes=nbytes, ops=2 * (dqk + dv) * pairs,
+            reps=20 if b > 1 else 200, dtype=tname,
+            extra={**_sdpa_backends(*first[3:], scale),
+                   "padded_bound_ms": _bound(
+                       padded_bytes, 4 * width * pairs, tname)[0]}))
+        del first
+
+    def composite(x, wg, wi, wo):
+        return (F.silu(x @ wg) * (x @ wi)) @ wo
+
+    rows["fused_ffn"] = [_timing_row(
+        "fused_ffn", {"m": m, "d": d, "f": f},
+        lambda i, m=m, d=d, f=f: _ffn_inputs(m, d, f, bf16, 131 + 4 * i),
+        ff.fused_swiglu, ff.swiglu_plain, None,
+        nbytes=(2 * m * d + 3 * d * f) * 2, ops=6 * m * d * f,
+        reps=20 if m > 8 else 100, composite=composite)
+        for m, d, f in DEEPSEEK_FFN_CASES]
+    rows["rmsnorm"] = [_timing_row(
+        "rmsnorm", {"m": 4096, "d": d},
+        lambda i, d=d: _rms_inputs(4096, d, bf16, 151 + 2 * i),
+        rn.fused_rmsnorm, rn.rmsnorm_plain,
+        lambda x, sc, d=d: F.rms_norm(x, (d,), sc, 1e-5),
+        nbytes=(2 * 4096 * d + d) * 2, ops=0, reps=200)
+        for d in (5120, 1536, 512, 1024)]
+    return rows
 
 
 def phase_lm_timing() -> dict:
@@ -1283,8 +1504,10 @@ def phase_lm_timing() -> dict:
     GQA, ``F.rms_norm``) and B3's composite (three bf16 ``torch.matmul``s
     and ``F.silu(g) * u``) are timed here only; the port never calls them.
     Then the same at jamba-v0.1-52b's shapes (d 4096, d_ff 14,336, Hkv 8,
-    d 128).  Returns the 8 x 512 prefill row of each kernel, with B3's and
-    B4's decode rows, and each kernel's jamba rows (``<lib>_jamba``)."""
+    d 128), and at deepseek-v2-236b's and xlstm-350m's
+    (:func:`_mla_timing_rows`).  Returns the 8 x 512 prefill row of each
+    kernel, with B3's and B4's decode rows, and each kernel's jamba rows
+    (``<lib>_jamba``) and deepseek / xlstm rows (``<lib>_mla_xlstm``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1367,12 +1590,17 @@ def phase_lm_timing() -> dict:
             q, k, v, is_causal=True, enable_gqa=True),
         nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
         ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100)]
+    for lib, new in _mla_timing_rows().items():
+        rows[f"{lib}_mla_xlstm"] = new
     return rows
 
 
 PHASES = ("kernel_vs_plain", "golden", "full_run", "timing",
           "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
-          "hybrid_vs_cpu", "lm_timing")
+          "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
+          "lm_timing")
+# the phases that serve at full width, whose launches the kernels line sums
+SERVE_PHASES = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm")
 
 
 def main(argv=None) -> int:
@@ -1417,9 +1645,17 @@ def main(argv=None) -> int:
     serve = phase_serve() if run("serve") else None
     if run("serve_vs_cpu"):
         phase_serve_vs_cpu()
-    hybrid = phase_serve_hybrid(device) if run("serve_hybrid") else None
+    served = {"serve": serve}
+    if run("serve_hybrid"):
+        served["serve_hybrid"] = phase_serve_hybrid(device)
     if run("hybrid_vs_cpu"):
         phase_hybrid_vs_cpu()
+    if run("serve_mla"):
+        served["serve_mla"] = phase_serve_mla(device)
+    if run("serve_xlstm"):
+        served["serve_xlstm"] = phase_serve_xlstm(device)
+    if run("mla_xlstm_vs_cpu"):
+        phase_mla_xlstm_vs_cpu()
     lm_rows = phase_lm_timing() if run("lm_timing") else None
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)
@@ -1451,9 +1687,10 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{lib}.cu",
             "replaces": replaces,
-            "launches": serve["launches"][lib] + hybrid["launches"][lib],
-            "launches_by_path": {"serve": serve["launches"][lib],
-                                 "serve_hybrid": hybrid["launches"][lib]},
+            "launches": sum(served[p]["launches"][lib]
+                            for p in SERVE_PHASES),
+            "launches_by_path": {p: served[p]["launches"][lib]
+                                 for p in SERVE_PHASES},
             "max_abs_err": lm_errs[(lib, "bfloat16")],
             "max_abs_err_fp32": lm_errs[(lib, "float32")],
             "shape": {k: v for k, v in row.items()
@@ -1476,6 +1713,13 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms", "composite_ms", "l2_cold") if k in r}
             for r in lm_rows[f"{lib}_jamba"]]
+        kernels[-1]["mla_xlstm"] = [{k: r[k] for k in (
+            "m", "d", "f", "b", "h", "hkv", "s", "mla", "dtype", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "padded_bound_ms", "library_ms", "library_device_ms",
+            "sdpa_backends", "sdpa_default_equals", "composite_ms",
+            "l2_cold") if k in r}
+            for r in lm_rows[f"{lib}_mla_xlstm"]]
         if f"{lib}_decode" in lm_rows:
             dec = lm_rows[f"{lib}_decode"]
             kernels[-1]["decode"] = {k: dec[k] for k in (

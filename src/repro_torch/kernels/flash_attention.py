@@ -23,6 +23,10 @@ from .ref import attention_ref
 #: and nowhere else; callers may reset it to 0)
 launches = 0
 
+#: the head dims the CUDA kernel is built for
+#: (``flash_attention_supports`` in ``csrc/flash_attention.cu``)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
 
 def _check_shapes(name, q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -76,8 +80,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = _build.load("flash_attention")
     if not lib.flash_attention_supports(d):
-        raise ValueError(f"flash_attention is built for head dims 16, 32, "
-                         f"64, 128 and 256, not {d}")
+        raise ValueError(f"flash_attention is built for head dims "
+                         f"{HEAD_DIMS}, not {d}")
     scale = scale or 1.0 / math.sqrt(d)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     _build.launch(lib.flash_attention_launch, index, q.data_ptr(),

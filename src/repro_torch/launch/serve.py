@@ -7,10 +7,10 @@
 Same flags as the JAX package's ``repro.launch.serve``, plus ``--device``
 (default ``cuda``; without a GPU it prints ``error: ...`` and exits 2, it
 never carries on on the CPU).  Weights are random, drawn from ``--seed`` on
-the device.  Decoder-only archs whose blocks the port has are served (all
-but deepseek-v2-236b's MLA and xlstm-350m's mLSTM/sLSTM); the others exit 2
-naming their ROADMAP item.  jamba-v0.1-52b at full depth (52 B parameters,
-~104 GB in bf16) does not fit one 80 GB card; its smoke config does.
+the device.  Every decoder-only arch is served; the encoder-decoder
+whisper-base exits 2 naming its ROADMAP item.  jamba-v0.1-52b at full depth
+(52 B parameters, ~104 GB in bf16) and deepseek-v2-236b (236 B, ~471 GB) do
+not fit one 80 GB card; their smoke configs do.
 Besides what ``repro.launch.serve`` prints, it prints one
 ``group: {json}`` line per batch: batch, prompt length, time to the first
 tokens on the host and decode tokens/s.

@@ -1,8 +1,8 @@
 """Transformer/SSM blocks: pre-norm mixer + pre-norm FFN/MoE, by BlockSpec.
 
-The port covers the attention mixers (``ATTN``, ``ATTN_LOCAL``) and Mamba,
-with the dense FFN, the MoE, Arctic's dense-parallel-MoE or none; MLA,
-mLSTM and sLSTM raise ``NotImplementedError`` naming their ROADMAP item.
+Every mixer of the JAX package (attention, local attention, MLA, Mamba,
+mLSTM, sLSTM) with the dense FFN, the MoE, Arctic's dense-parallel-MoE or
+none.
 """
 
 from __future__ import annotations
@@ -32,22 +32,28 @@ from .layers import (
     ffn_init,
     mamba_apply,
     mamba_init,
+    mla_apply,
+    mla_init,
+    mlstm_apply,
+    mlstm_init,
     moe_apply,
     moe_init,
-    not_ported,
     rmsnorm,
     rmsnorm_init,
+    slstm_apply,
+    slstm_init,
+    slstm_initial_state,
 )
 
-_MIXER_NAMES = {ATTN_MLA: "MLA attention", MLSTM: "mLSTM", SLSTM: "sLSTM"}
+_MIXER_INITS = {ATTN: attention_init, ATTN_LOCAL: attention_init,
+                ATTN_MLA: mla_init, MAMBA: mamba_init, MLSTM: mlstm_init,
+                SLSTM: slstm_init}
 _FFNS = (FFN_DENSE, FFN_MOE, FFN_MOE_RESIDUAL, FFN_NONE)
 
 
 def check_supported(spec: BlockSpec) -> None:
-    """Raise ``NotImplementedError`` for a block kind the port lacks."""
-    if spec.mixer not in (ATTN, ATTN_LOCAL, MAMBA):
-        if spec.mixer in _MIXER_NAMES:
-            raise not_ported(_MIXER_NAMES[spec.mixer], "A3")
+    """Raise ``ValueError`` for a block kind the JAX package lacks too."""
+    if spec.mixer not in _MIXER_INITS:
         raise ValueError(spec.mixer)
     if spec.ffn not in _FFNS:
         raise ValueError(spec.ffn)
@@ -57,10 +63,7 @@ def block_init(gen, cfg: ModelConfig, spec: BlockSpec, dtype=torch.float32,
                device=None):
     check_supported(spec)
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dtype, device)}
-    if spec.mixer == MAMBA:
-        p["mixer"] = mamba_init(gen, cfg, dtype, device)
-    else:
-        p["mixer"] = attention_init(gen, cfg, dtype, device)
+    p["mixer"] = _MIXER_INITS[spec.mixer](gen, cfg, dtype, device)
     if spec.ffn != FFN_NONE:
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device)
     if spec.ffn in (FFN_MOE, FFN_MOE_RESIDUAL):
@@ -80,13 +83,20 @@ def block_apply(
     kv_source: Optional[torch.Tensor] = None,
     fresh: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
-    """Returns (x, cache, aux_loss): the cache or Mamba state written in
-    place; the MoE's aux loss, ``None`` for a block without one.
+    """Returns (x, cache, aux_loss): the cache or recurrent state written
+    in place; the MoE's aux loss, ``None`` for a block without one.
     ``fresh`` as in :func:`repro_torch.models.layers.attention_apply`."""
     check_supported(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec.mixer == MAMBA:
         out, new_cache = mamba_apply(params["mixer"], cfg, h, state=cache)
+    elif spec.mixer == MLSTM:
+        out, new_cache = mlstm_apply(params["mixer"], cfg, h, state=cache)
+    elif spec.mixer == SLSTM:
+        out, new_cache = slstm_apply(params["mixer"], cfg, h, state=cache)
+    elif spec.mixer == ATTN_MLA:
+        out, new_cache = mla_apply(params["mixer"], cfg, h, positions,
+                                   cache=cache, fresh=fresh)
     else:
         window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
         out, new_cache = attention_apply(params["mixer"], cfg, h, positions,
@@ -109,8 +119,31 @@ def block_apply(
 def init_cache_for_block(cfg: ModelConfig, spec: BlockSpec, batch: int,
                          max_len: int, dtype=torch.bfloat16,
                          device=None) -> Optional[Dict]:
-    """Decode-time cache/state skeleton for one layer."""
+    """Decode-time cache/state skeleton for one layer; every leaf its own
+    tensor (the reference's sLSTM state shares one array between ``c`` and
+    ``h``; the port writes states in place, so it cannot)."""
     check_supported(spec)
+    if spec.mixer == ATTN_MLA:
+        return {
+            "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, 1, cfg.rope_head_dim),
+                                  dtype=dtype, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device),
+        }
+    if spec.mixer == MLSTM:
+        di = 2 * cfg.d_model
+        dh = di // cfg.n_heads
+        return {
+            "C": torch.zeros((batch, cfg.n_heads, dh, dh),
+                             dtype=torch.float32, device=device),
+            "N": torch.zeros((batch, cfg.n_heads, dh), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, 3, di), dtype=dtype, device=device),
+        }
+    if spec.mixer == SLSTM:
+        return slstm_initial_state(batch, cfg.n_heads,
+                                   cfg.d_model // cfg.n_heads, device)
     if spec.mixer == MAMBA:
         di = cfg.mamba_expand * cfg.d_model
         return {
@@ -134,6 +167,19 @@ def init_cache_for_block(cfg: ModelConfig, spec: BlockSpec, batch: int,
 def cache_axes_for_block(cfg: ModelConfig, spec: BlockSpec) -> Optional[Dict]:
     """Logical axes parallel to init_cache_for_block's value tree."""
     check_supported(spec)
+    if spec.mixer == ATTN_MLA:
+        return {
+            "ckv": ("batch", "seq_kv", "kv_lora"),
+            "k_rope": ("batch", "seq_kv", None, None),
+            "len": (),
+        }
+    if spec.mixer == MLSTM:
+        return {"C": ("batch", None, None, None),
+                "N": ("batch", None, None),
+                "conv": ("batch", None, "lstm_inner")}
+    if spec.mixer == SLSTM:
+        ax = ("batch", None, None)
+        return {"c": ax, "n": ax, "h": ax, "m": ax}
     if spec.mixer == MAMBA:
         return {"conv": ("batch", None, "mamba_inner"),
                 "ssm": ("batch", "mamba_inner", None)}

@@ -1,6 +1,6 @@
-"""Functional layers of the port's model zoo: the attention, dense-FFN, MoE
-and Mamba layers of the JAX package's ``repro.models.layers`` (MLA, mLSTM
-and sLSTM wait for a later slice).
+"""Functional layers of the port's model zoo: the attention, MLA, dense-FFN,
+MoE, Mamba, mLSTM and sLSTM layers of the JAX package's
+``repro.models.layers`` (forward only: sLSTM's custom VJP is training's).
 
 Every ``*_init`` returns a tree of nested dicts whose leaves are
 :class:`Param` (value + logical axes); ``*_apply`` consumes the matching
@@ -11,14 +11,15 @@ port has none.
 RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where its
 contract holds, attention go through :mod:`repro_torch.kernels.ops`: the
 hand-written CUDA kernels on a CUDA tensor, their plain torch versions on a
-CPU tensor.  Which route a call takes depends on shapes and flags only,
-never on the device.
+CPU tensor (MLA's prefill pads its 192-wide q/k and 128-wide v heads to one
+width the attention kernel is built for).  Which route a call takes depends
+on shapes and flags only, never on the device.
 
 Matrix products promote their operands to a common dtype as the JAX
 package's do (a bf16 activation against an fp32 cache gives fp32), so the
 port follows the reference under any mix of compute and cache dtypes.
-Caches and Mamba states are updated in place (JAX returns new arrays; the
-port writes the same slots of the same tensors and returns the dict).
+Caches and recurrent states are updated in place (JAX returns new arrays;
+the port writes the same slots of the same tensors and returns the dict).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 from .config import ModelConfig
 
@@ -339,6 +341,116 @@ def attention_apply(params, cfg: ModelConfig, x, positions,
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    d, h = cfg.d_model, cfg.n_heads
+    dh, dv, r = cfg.head_dim, cfg.v_dim, cfg.rope_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    p = {}
+    if qr:
+        p["wdq"] = _init(gen, (d, qr), ("embed", None), dtype=dtype,
+                         device=device)
+        p["q_norm"] = rmsnorm_init(qr, dtype, device)
+        p["wuq"] = _init(gen, (qr, h, dh + r), (None, "heads", "head_dim"),
+                         dtype=dtype, device=device)
+    else:
+        p["wuq"] = _init(gen, (d, h, dh + r), ("embed", "heads", "head_dim"),
+                         dtype=dtype, device=device)
+    p["wdkv"] = _init(gen, (d, kvr + r), ("embed", "kv_lora"), dtype=dtype,
+                      device=device)
+    p["kv_norm"] = rmsnorm_init(kvr, dtype, device)
+    p["wukv"] = _init(gen, (kvr, h, dh + dv),
+                      ("kv_lora", "heads", "head_dim"), dtype=dtype,
+                      device=device)
+    p["wo"] = _init(gen, (h, dv, d), ("heads", "head_dim", "embed"),
+                    scale=1.0 / math.sqrt(h * dv), dtype=dtype, device=device)
+    return p
+
+
+def mla_apply(params, cfg: ModelConfig, x, positions,
+              cache: Optional[Dict] = None, fresh: bool = False):
+    """Latent attention; returns (out, cache).  ``cache``: {"ckv",
+    "k_rope", "len"}, the compressed pair the reference caches, written in
+    place at slot ``len`` (clamped so the run fits, as
+    ``dynamic_update_slice`` clamps; no ring).  ``fresh`` as in
+    :func:`attention_apply`.
+
+    The shared rope key is folded into every head: one ``dh + r``-wide q/k
+    head and a ``dv``-wide v head, scale ``1/sqrt(dh + r)``.  A fresh
+    prefill of S > 1 tokens goes through ``ops.attention`` with q and k
+    zero-padded from ``dh + r`` and v from ``dv`` to the smallest width the
+    kernel is built for (256 at deepseek's 192 and 128): zero columns add
+    nothing to ``q . k``, and the output's padding columns are dropped.
+    The empty cache slots the reference attends over lie at key positions
+    past every query and are masked causally, so attending over the S
+    in-flight keys is the same function.  Decode and a prefill into a
+    non-empty cache expand the whole cache through ``wukv`` and take the
+    reference's dense / chunked path, as the reference does."""
+    B, S, D = x.shape
+    h, dh, dv, r = cfg.n_heads, cfg.head_dim, cfg.v_dim, cfg.rope_head_dim
+    kvr = cfg.kv_lora_rank
+    # queries
+    if cfg.q_lora_rank:
+        cq = rmsnorm(params["q_norm"], _mm(x, params["wdq"]), cfg.norm_eps)
+        wuq = params["wuq"]
+        q = _mm(cq, wuq.reshape(wuq.shape[0], h * (dh + r)))
+    else:
+        q = _mm(x, params["wuq"].reshape(D, h * (dh + r)))
+    q = q.view(B, S, h, dh + r)
+    q = torch.cat([q[..., :dh], apply_rope(q[..., dh:], positions,
+                                           cfg.rope_theta)], dim=-1)
+
+    # compressed kv + shared rope key
+    ckv_full = _mm(x, params["wdkv"])                        # [B,S,kvr+r]
+    ckv = rmsnorm(params["kv_norm"], ckv_full[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)                      # [B,S,1,r]
+    if cache is not None:
+        T = cache["ckv"].shape[1]
+        start = torch.clamp(cache["len"].long(), max=T - S)
+        idx = start + torch.arange(S, device=x.device)
+        cache["ckv"].index_copy_(1, idx, ckv.to(cache["ckv"].dtype))
+        cache["k_rope"].index_copy_(1, idx, k_rope.to(cache["k_rope"].dtype))
+        cache["len"].add_(S)
+    wukv = params["wukv"].reshape(kvr, h * (dh + dv))
+    scale = 1.0 / math.sqrt(dh + r)
+    width = next((w for w in HEAD_DIMS if w >= max(dh + r, dv)), 0)
+    if fresh and S > 1 and width:
+        if cache is not None:  # the reference expands the cache's dtype
+            ckv = ckv.to(cache["ckv"].dtype)
+            k_rope = k_rope.to(cache["k_rope"].dtype)
+        kv = _mm(ckv, wukv).view(B, S, h, dh + dv)
+        dt = torch.promote_types(q.dtype, kv.dtype)
+        kf = torch.cat([kv[..., :dh].to(dt),
+                        k_rope.to(dt).expand(B, S, h, r)], dim=-1)
+
+        def padded(t):  # [B, S, h, w] -> [B, h, S, width]
+            return F.pad(t.to(dt), (0, width - t.shape[-1])).transpose(1, 2)
+
+        out = ops.attention(padded(q), padded(kf), padded(kv[..., dh:]),
+                            causal=True, scale=scale)
+        out = out[..., :dv].transpose(1, 2).to(kv.dtype)
+    else:
+        if cache is not None:
+            ckv, k_rope = cache["ckv"], cache["k_rope"]
+        T = ckv.shape[1]
+        kv = _mm(ckv, wukv).view(B, T, h, dh + dv)
+        k_nope, v = kv[..., :dh], kv[..., dh:]
+        dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
+        kf = torch.cat([k_nope.to(dt), k_rope.to(dt).expand(B, T, h, r)],
+                       dim=-1)
+        out = _dispatch_attend(q[:, :, :, None, :], kf, v, positions,
+                               torch.arange(T, device=x.device),
+                               causal=True, window=0, softcap=0.0,
+                               chunk=cfg.attn_chunk, scale=scale)
+        out = out[:, :, :, 0, :]
+    out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
 # FFNs
 # ---------------------------------------------------------------------------
 
@@ -400,7 +512,9 @@ def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
     ``[E, B, C, d]``, so that each expert's ``B * C`` rows are one
     contiguous ``[B*C, d]`` block: with ``act="silu"`` each goes through
     ``ops.swiglu`` (B3 on a CUDA tensor), every expert every call, as the
-    reference computes its dense buffer.  GeLU experts stay plain torch."""
+    reference computes its dense buffer.  GeLU experts stay plain torch.
+    The combine sums each token's choices in a fixed order, so that a run
+    repeats its tokens bit for bit on any device."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = max(1, int(cfg.capacity_factor * k * S / E))
@@ -446,9 +560,18 @@ def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
     # a zero row for the dropped choices, as the reference pads
     y = torch.cat(ys + [ys[0].new_zeros((1, d))])           # [E*B*C+1, d]
 
+    # each token's k weighted outputs, summed in x's dtype in the order of
+    # their experts, as the reference's scatter-add over the expert-sorted
+    # choices adds them one at a time.  (A CUDA index_add_ adds in the order
+    # its atomics land: with more than two terms a bf16 sum then rounds
+    # differently from run to run.)
     yc = y[dest.reshape(-1)] * (ws * keep).reshape(-1, 1).to(y.dtype)
-    out = x.new_zeros((B * S, d)).index_add_(
-        0, (batch * S + tok).reshape(-1), yc.to(x.dtype)).view(B, S, d)
+    ranks = torch.argsort(sort_idx, dim=-1).view(B, S, k).sort(-1).values
+    yk = yc.to(x.dtype)[(batch[..., None] * (S * k) + ranks).reshape(-1)]
+    yk = yk.view(B, S, k, d)
+    out = yk[:, :, 0]
+    for j in range(1, k):
+        out = out + yk[:, :, j]
     if cfg.n_shared_experts:
         out = out + ffn_apply(params["shared"], x, act)
     return out, aux
@@ -548,6 +671,221 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
         return out, {"conv": conv_state.to(x.dtype), "ssm": prev.clone()}
     state["conv"].copy_(conv_state)
     state["ssm"].copy_(prev)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory, chunked parallel) + sLSTM (scalar, time loop)
+# ---------------------------------------------------------------------------
+
+def mlstm_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    d = cfg.d_model
+    di = 2 * d
+    return {
+        "up": _init(gen, (d, 2 * di), ("embed", "lstm_inner"), dtype=dtype,
+                    device=device),
+        "conv_w": _init(gen, (4, di), ("conv", "lstm_inner"), scale=0.5,
+                        dtype=dtype, device=device),
+        "conv_b": _zeros((di,), ("lstm_inner",), dtype, device),
+        "wq": _init(gen, (di, di), ("lstm_inner", None), dtype=dtype,
+                    device=device),
+        "wk": _init(gen, (di, di), ("lstm_inner", None), dtype=dtype,
+                    device=device),
+        "wv": _init(gen, (di, di), ("lstm_inner", None), dtype=dtype,
+                    device=device),
+        "wif": _init(gen, (di, 2 * cfg.n_heads), ("lstm_inner", None),
+                     scale=0.01, dtype=dtype, device=device),
+        "skip": _ones((di,), ("lstm_inner",), dtype, device),
+        "down": _init(gen, (di, d), ("lstm_inner", "embed"), dtype=dtype,
+                      device=device),
+        "out_norm": rmsnorm_init(di, dtype, device),
+    }
+
+
+def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
+                chunk: int = 256):
+    """Returns (out, state); ``state`` = {"C": [B,H,dh,dh] fp32, "N":
+    [B,H,dh] fp32, "conv": [B,3,di]}, written in place when given (a new
+    dict otherwise).
+
+    S <= 4 takes the reference's unrolled recurrence, at prefill too;
+    longer runs its chunked-parallel form seeded from the state, ``nc =
+    max(1, S // chunk)`` chunks of ``S / nc`` steps, the scan over chunks a
+    Python loop.  Where ``nc`` does not divide S the reference's reshape
+    fails, and so does this (``ValueError``)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    di = 2 * d
+    dh = di // H
+
+    uz = _mm(x, params["up"])
+    u, z = uz[..., :di], uz[..., di:]
+    c, conv_state = _causal_conv1d(u, params["conv_w"], params["conv_b"],
+                                   None if state is None else state["conv"])
+    c = F.silu(c)
+
+    def heads(t):  # [B,S,di] -> [B,H,S,dh]
+        return t.reshape(B, S, H, dh).transpose(1, 2)
+
+    q = heads(_mm(c, params["wq"])).float()
+    # scaled in the compute dtype, as the reference, before the fp32 cast
+    k = (heads(_mm(c, params["wk"])) / math.sqrt(dh)).float()
+    v = heads(_mm(u, params["wv"])).float()
+    gates = _mm(u, params["wif"])                            # [B,S,2H]
+    logi = gates[..., :H].clamp(-12.0, 12.0).float().transpose(1, 2)
+    logf = F.logsigmoid(gates[..., H:].float() + 2.0).transpose(1, 2)
+
+    if state is not None:
+        C0, N0 = state["C"].float(), state["N"].float()
+    else:
+        C0 = x.new_zeros((B, H, dh, dh), dtype=torch.float32)
+        N0 = x.new_zeros((B, H, dh), dtype=torch.float32)
+
+    if S <= 4:  # the reference's unrolled recurrence
+        ys = []
+        for t in range(S):
+            f_t = torch.exp(logf[:, :, t])[..., None, None]
+            i_t = torch.exp(logi[:, :, t])[..., None, None]
+            kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+            C0 = f_t * C0 + i_t * kv
+            N0 = f_t[..., 0] * N0 + i_t[..., 0] * k[:, :, t]
+            qt = q[:, :, t]
+            num = torch.einsum("bhd,bhdv->bhv", qt, C0)
+            den = torch.einsum("bhd,bhd->bh", qt, N0).abs()[..., None]
+            ys.append(num / den.clamp_min(1.0))
+        y = torch.stack(ys, dim=2)
+        Cl, Nl = C0, N0
+    else:  # chunked parallel, seeded from the state
+        nc = max(1, S // chunk)
+        cs = S // nc
+        if nc * cs != S:
+            raise ValueError(f"mlstm_apply: {S} steps do not split into "
+                             f"{nc} chunks of {cs} (the reference's "
+                             f"reshape fails there too)")
+        qc = q.reshape(B, H, nc, cs, dh)
+        kc = k.reshape(B, H, nc, cs, dh)
+        vc = v.reshape(B, H, nc, cs, dh)
+        lic = logi.reshape(B, H, nc, cs)
+        cum_f = torch.cumsum(logf.reshape(B, H, nc, cs), dim=-1)
+        tot_f = cum_f[..., -1]
+
+        # intra-chunk: D[i,j] = exp(cum_f_i - cum_f_j + logi_j), j <= i
+        dmat = cum_f[..., :, None] - cum_f[..., None, :] + lic[..., None, :]
+        tri = torch.ones((cs, cs), dtype=torch.bool, device=x.device).tril()
+        dmat = torch.where(tri, dmat, float("-inf"))
+        att = torch.einsum("bhnid,bhnjd->bhnij", qc, kc) * torch.exp(dmat)
+        y_intra = torch.einsum("bhnij,bhnjd->bhnid", att, vc)
+        den_intra = att.sum(-1)
+
+        # inter-chunk state scan
+        decay_in = torch.exp(tot_f[..., None] - cum_f + lic)  # [B,H,n,cs]
+        kv_chunk = torch.einsum("bhncd,bhncv,bhnc->bhndv", kc, vc, decay_in)
+        n_chunk = torch.einsum("bhncd,bhnc->bhnd", kc, decay_in)
+        Cs, Ns = [], []
+        Cl, Nl = C0, N0
+        for i in range(nc):
+            Cs.append(Cl)
+            Ns.append(Nl)
+            decay = torch.exp(tot_f[:, :, i])
+            Cl = decay[..., None, None] * Cl + kv_chunk[:, :, i]
+            Nl = decay[..., None] * Nl + n_chunk[:, :, i]
+        Cs_ = torch.stack(Cs, dim=2)                          # [B,H,n,dh,dh]
+        Ns_ = torch.stack(Ns, dim=2)
+        qdec = qc * torch.exp(cum_f)[..., None]
+        y_inter = torch.einsum("bhncd,bhndv->bhncv", qdec, Cs_)
+        den_inter = torch.einsum("bhncd,bhnd->bhnc", qdec, Ns_)
+
+        num = y_intra + y_inter
+        den = (den_intra + den_inter).abs()[..., None]        # |q . n|
+        y = (num / den.clamp_min(1.0)).reshape(B, H, S, dh)
+
+    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
+    y = y + params["skip"] * c                                # learnable skip
+    y = y * F.silu(z)
+    out = _mm(y, params["down"])
+    if state is None:
+        return out, {"C": Cl, "N": Nl, "conv": conv_state}
+    state["C"].copy_(Cl)
+    state["N"].copy_(Nl)
+    state["conv"].copy_(conv_state)
+    return out, state
+
+
+def slstm_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
+    d = cfg.d_model
+    H = cfg.n_heads
+    dh = d // H
+    dff = max(128, ((int(d * 4 / 3) + 127) // 128) * 128)  # 4/3 GLU
+    return {
+        "win": _init(gen, (d, 4 * d), ("embed", "lstm_inner"), dtype=dtype,
+                     device=device),
+        "rrec": _init(gen, (H, dh, 4 * dh), (None, None, None),
+                      scale=1.0 / math.sqrt(dh), dtype=dtype, device=device),
+        "bias": _zeros((4 * d,), ("lstm_inner",), dtype, device),
+        "out_norm": rmsnorm_init(d, dtype, device),
+        "up": _init(gen, (d, 2 * dff), ("embed", "ff"), dtype=dtype,
+                    device=device),
+        "down": _init(gen, (dff, d), ("ff", "embed"), dtype=dtype,
+                      device=device),
+    }
+
+
+def _slstm_cell(c, n, m, pre):
+    """One stabilized sLSTM step (pre = Wx_t + h_{t-1} R already formed)."""
+    zi, ii, fi, oi = pre.chunk(4, dim=-1)
+    zt = torch.tanh(zi)
+    ot = torch.sigmoid(oi)
+    log_f = F.logsigmoid(fi)
+    m_new = torch.maximum(log_f + m, ii)
+    i_p = torch.exp(ii - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c_new = f_p * c + i_p * zt
+    n_new = f_p * n + i_p
+    h_new = ot * c_new / n_new.clamp_min(1e-6)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_initial_state(batch: int, heads: int, dh: int, device=None):
+    """The reference's initial sLSTM state: c = h = 0, n = 1e-6, m = -10,
+    four distinct fp32 tensors ``[batch, heads, dh]``."""
+    def full(v):
+        return torch.full((batch, heads, dh), v, dtype=torch.float32,
+                          device=device)
+    return {"c": full(0.0), "n": full(1e-6), "h": full(0.0),
+            "m": full(-10.0)}
+
+
+def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
+    """Sequential scalar-memory LSTM with per-head recurrence + GLU out;
+    returns (out, state).  ``state`` = {"c","n","h","m"}, each [B,H,dh]
+    fp32, written in place when given (a new dict otherwise).  The
+    reference's ``lax.scan`` over time is a Python loop, one step a
+    token."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    wx = (_mm(x, params["win"]) + params["bias"]).float()
+    wx = wx.reshape(B, S, H, 4 * dh)
+
+    st = slstm_initial_state(B, H, dh, x.device) if state is None else state
+    c, n, h, m = (st[key].float() for key in ("c", "n", "h", "m"))
+    rrec = params["rrec"].float()
+    hs = []
+    for t in range(S):
+        pre = wx[:, t] + torch.einsum("bhd,hdk->bhk", h, rrec)
+        c, n, m, h = _slstm_cell(c, n, m, pre)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
+    up = _mm(y, params["up"])
+    dff = params["down"].shape[0]
+    y = F.gelu(up[..., :dff], approximate="tanh") * up[..., dff:]
+    out = _mm(y, params["down"])
+    if state is None:
+        return out, {"c": c, "n": n, "h": h, "m": m}
+    for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+        state[key].copy_(val)
     return out, state
 
 

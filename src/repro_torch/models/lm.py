@@ -21,7 +21,6 @@ from .blocks import (
     block_apply,
     block_init,
     cache_axes_for_block,
-    check_supported,
     init_cache_for_block,
 )
 from .config import ModelConfig
@@ -47,11 +46,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_decoder(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    the port cannot run yet (enc-dec, or a block kind it lacks)."""
+    the port cannot run yet (enc-dec)."""
     if cfg.is_encdec:
         raise not_ported(f"the encoder-decoder LM ({cfg.name})", "A4")
-    for spec in set(cfg.block_specs()):
-        check_supported(spec)
 
 
 def _stack_params(trees: List[Any]):
@@ -123,12 +120,14 @@ def lm_apply(
     """Returns (logits [B,S,V], caches, aux_loss); ``aux_loss`` is the sum
     of the MoE layers' aux losses, an fp32 scalar on ``tokens``' device.
 
-    ``caches`` (attention rings and Mamba states) are written in place and
-    returned.  ``prefill=True`` says the caches are empty (Mamba starts
-    from the zero state) and the tokens sit at positions 0..S-1 (then
+    ``caches`` (attention rings, MLA's latent cache, Mamba, mLSTM and sLSTM
+    states) are written in place and returned.  ``prefill=True`` says the
+    caches are empty (the recurrent states hold their initial values) and
+    the tokens sit at positions 0..S-1 (then
     ``positions`` must be None); with it, or with neither caches nor
     positions, attention over S > 1 tokens may take the flash-attention
-    kernel (:func:`repro_torch.models.layers.attention_apply`).
+    kernel (:func:`repro_torch.models.layers.attention_apply`,
+    :func:`repro_torch.models.layers.mla_apply`).
     ``last_only=True`` computes the final norm and the head on the last
     position only (logits ``[B, 1, V]``, the same values as the last row of
     the full logits)."""
@@ -156,7 +155,7 @@ def lm_apply(
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer(vals, li, cache):
-        # the cache (or Mamba state) is written in place: the scanned
+        # the cache (or recurrent state) is written in place: the scanned
         # layers' caches are views into the stacked tensors
         nonlocal x, aux_total
         x, _, a = block_apply(tree_cast(vals, cdtype), cfg, specs[li], x,

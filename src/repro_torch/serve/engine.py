@@ -3,8 +3,8 @@ zoo (the JAX package's ``repro.serve.engine.ServeEngine``).
 
 Requests are grouped by prompt length (static batching with length
 bucketing); each group is prefilled in one batched forward that also fills
-the caches (attention rings, and Mamba's conv and SSM states for the
-hybrid archs), then decoded synchronously with the reference's stop rule.
+the caches (attention rings, MLA's latent cache, and the Mamba, mLSTM and
+sLSTM states of the recurrent archs), then decoded synchronously with the reference's stop rule.
 What differs from the reference, none of it in the tokens:
 
 * the parameters are cast to the compute dtype once, at construction (the

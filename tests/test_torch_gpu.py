@@ -14,8 +14,10 @@ machine without them:
 * the smoke tinyllama served through the CUDA kernels and through their
   plain versions on the CPU gives the same greedy tokens, with each kernel
   launched as often as the model's structure implies;
-* the jamba (Mamba + MoE) and arctic (MoE) smoke forwards on the card
-  against the CPU, and B3 at jamba's width at decode;
+* the jamba (Mamba + MoE), arctic (MoE), deepseek (MLA + MoE) and xlstm
+  (mLSTM + sLSTM) smoke forwards on the card against the CPU, B3 at
+  jamba's width at decode and at a deepseek expert's, and B2 under MLA's
+  padded contract at deepseek's prefill shape;
 * B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results.
@@ -158,7 +160,8 @@ def test_engine_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b",
+                                  "deepseek-v2-236b", "xlstm-350m"])
 def test_moe_and_hybrid_forwards_on_the_card_equal_the_cpu(arch):
     """``chip_smoke.py``'s case: the fp32 smoke forward's logits within
     1e-3 of the CPU's, the same experts chosen for every token at every
@@ -169,6 +172,27 @@ def test_moe_and_hybrid_forwards_on_the_card_equal_the_cpu(arch):
 
     out = chip_smoke._hybrid_vs_cpu_case(arch)
     assert out["close"] and not out["rerouted"]
+
+
+@pytest.mark.gpu
+def test_moe_repeats_its_output_bit_for_bit_on_the_card():
+    """deepseek's smoke MoE (top-2 of 4 experts and a shared one) with
+    top-6 of 8 experts, in bf16 on the card: three calls on the same input
+    give the same bits (each token's six weighted outputs are summed in a
+    fixed order, not by atomics in whatever order they land)."""
+    needs_gpu()
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("deepseek-v2-236b", smoke=True).with_(
+        n_experts=8, top_k=6, capacity_factor=8.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = layers.tree_cast(layers.param_values(
+        layers.moe_init(gen, cfg, device="cuda")), torch.bfloat16)
+    x = torch.randn((4, 256, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    outs = [layers.moe_apply(params, cfg, x)[0] for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.gpu
@@ -192,12 +216,65 @@ def test_ffn_at_jamba_width_at_decode():
                   ff.swiglu_plain(x, wg, wi, wo))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 192])
+def test_ffn_at_a_deepseek_expert_shape(m):
+    """B3 at d 5120 x d_ff 1536 (one of deepseek's 160 experts) for a
+    batch-8 decode step and one expert's 8 x 24 rows at an 8 x 512
+    prefill, bf16, against its plain version."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    d, f = 5120, 1536
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    x, wg, wi = rnd(m, d), rnd(d, f, scale=d ** -0.5), rnd(
+        d, f, scale=d ** -0.5)
+    wo = rnd(f, d, scale=f ** -0.5)
+    assert _close(ff.fused_swiglu(x, wg, wi, wo),
+                  ff.swiglu_plain(x, wg, wi, wo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [0, 1], ids=["deepseek-bf16",
+                                              "smoke-fp32"])
+def test_flash_attention_under_mla_padding(case):
+    """B2 under MLA's contract (``chip_smoke.MLA_ATTN_CASES``): q and k
+    zero-padded from 192 to 256 columns and v from 128 at deepseek's
+    8 x 512 prefill, 128 heads, scale 1/sqrt(192), bf16; 24 / 16 to 32 at
+    the smoke widths in fp32.  Against its plain version on the padded
+    inputs, and its first v-width columns against attention over the
+    unpadded q, k, v."""
+    needs_gpu()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    b, h, s, dqk, dv, tname = chip_smoke.MLA_ATTN_CASES[case]
+    dtype = getattr(torch, tname)
+    args, scale = chip_smoke._mla_attn_inputs(b, h, s, dqk, dv, dtype, 7)
+    got = fa.flash_attention(*args[:3], scale=scale)
+    tol = chip_smoke.LM_TOL[tname]
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got.float(), fa.attention_plain(
+        *args[:3], scale=scale).float(), rtol=tol, atol=tol)
+    assert torch.allclose(got[..., :dv].float(), attention_ref(
+        *args[3:], scale=scale).float(), rtol=tol, atol=tol)
+
+
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 8, 300, 4097])
-@pytest.mark.parametrize("d", [64, 128, 256, 2047, 2048, 5632])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024, 1536, 2047, 2048,
+                               5120, 5632])
 def test_rmsnorm_against_plain_in_every_dtype_pair(d, m):
     """B4 at qk-norm's widths, the serving width, a width that is no whole
     number of 16-byte units (the scalar route) and d_ff's, for x and scale

@@ -1,6 +1,7 @@
-"""The port's model zoo (attention, dense-FFN, MoE and Mamba layers)
-against the JAX package's, on the CPU, with the reference's own seeded
-parameters carried over by :func:`repro_torch.bridge.lm_params_from_reference`.
+"""The port's model zoo (attention, MLA, dense-FFN, MoE, Mamba, mLSTM and
+sLSTM layers) against the JAX package's, on the CPU, with the reference's
+own seeded parameters carried over by
+:func:`repro_torch.bridge.lm_params_from_reference`.
 
 Tolerances: fp32 2e-5 for one layer (the two frameworks sum in other
 orders; Mamba's scan runs in time order in the port, where the
@@ -34,7 +35,10 @@ from repro_torch.models.layers import tree_map  # noqa: E402
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("tinyllama-1.1b", "gemma3-4b", "jamba-v0.1-52b", "arctic-480b")
+# every decoder-only config; those of ATTN_ARCHS attend with GQA attention
+ATTN_ARCHS = ("tinyllama-1.1b", "gemma3-4b", "jamba-v0.1-52b", "arctic-480b",
+              "glm4-9b", "granite-3-8b", "llava-next-34b")
+ARCHS = ATTN_ARCHS[:4] + ("deepseek-v2-236b", "xlstm-350m") + ATTN_ARCHS[4:]
 
 
 def rand(shape, seed, scale=1.0):
@@ -137,7 +141,7 @@ def _attn_params(arch, seed):
     return jcfg, p, lm_params_from_reference(np_tree(p))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_layer_attention_apply_uncached_matches(arch):
     jcfg, jp, tp = _attn_params(arch, 1)
     cfg = get_config(arch, smoke=True)
@@ -275,6 +279,182 @@ def test_layer_causal_conv1d_matches(with_state):
                                **F32)
 
 
+def _mixer_params(init, arch, seed):
+    jcfg = jax_get_config(arch, smoke=True)
+    p = jax_param_values(init(jax.random.PRNGKey(seed), jcfg))
+    return (jcfg, get_config(arch, smoke=True), p,
+            lm_params_from_reference(np_tree(p)))
+
+
+def _states(jcfg, spec, B, max_len, seed=None):
+    """The reference's and the port's cache for one block: the empty one,
+    or (``seed``) random values in every floating leaf, the same in both."""
+    from repro.models.blocks import init_cache_for_block as jax_cache
+
+    from repro_torch.models.blocks import init_cache_for_block
+
+    jc = np_tree(jax_cache(jcfg, spec, B, max_len, jnp.float32))
+    if seed is not None:
+        jc = {k: (np.abs(rand(v.shape, seed + i)) if k in ("n", "N")
+                  else rand(v.shape, seed + i) * (0.1 if k == "C" else 1.0))
+              if v.dtype == np.float32 else v
+              for i, (k, v) in enumerate(sorted(jc.items()))}
+    tc = init_cache_for_block(get_config(jcfg.name, smoke=True), spec, B,
+                              max_len, torch.float32)
+    for k, v in jc.items():
+        tc[k].copy_(torch.from_numpy(np.array(v)))
+    return jax.tree.map(jnp.asarray, jc), tc
+
+
+def _assert_states(got, want):
+    assert got.keys() == want.keys()
+    for key in want:
+        assert str(got[key].dtype) == f"torch.{np.asarray(want[key]).dtype}"
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   err_msg=key, **F32)
+
+
+@pytest.mark.parametrize("case", ["uncached", "prefill", "decode",
+                                  "chunk-of-5"])
+def test_layer_mla_apply_matches(case):
+    """MLA (deepseek's smoke widths: q/k heads 16 + 8 rope, v heads 16):
+    uncached, a cached prefill into an empty cache (both through the
+    attention kernel's padded route, ``fresh``, and the reference's), one
+    decode step and a 5-token chunk against a cache already holding 12
+    tokens; the cache written in place, every leaf equal."""
+    jcfg, cfg, jp, tp = _mixer_params(jl.mla_init, "deepseek-v2-236b", 21)
+    spec = BlockSpec("attn_mla", "dense")
+    B, S = 2, {"uncached": 12, "prefill": 12, "decode": 1,
+               "chunk-of-5": 5}[case]
+    start = 12 if case in ("decode", "chunk-of-5") else 0
+    x = rand((B, S, cfg.d_model), 22)
+    pos = np.tile(np.arange(start, start + S)[None], (B, 1))
+    if case == "uncached":
+        want, _ = jl.mla_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+        for fresh in (True, False):
+            got, cache = tl.mla_apply(tp, cfg, torch.from_numpy(x),
+                                      torch.from_numpy(pos), fresh=fresh)
+            assert cache is None
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        return
+    jc, _ = _states(jcfg, spec, B, 24)
+    if start:  # a cache holding 12 tokens, from the reference
+        x0 = rand((B, start, cfg.d_model), 23)
+        _, jc = jl.mla_apply(jp, jcfg, jnp.asarray(x0), jnp.asarray(
+            np.tile(np.arange(start)[None], (B, 1))), cache=jc)
+    want, want_cache = jl.mla_apply(jp, jcfg, jnp.asarray(x),
+                                    jnp.asarray(pos), cache=jc)
+    for fresh in ((True, False) if case == "prefill" else (False,)):
+        tc = {k: torch.from_numpy(np.array(v)) for k, v in jc.items()}
+        got, cache = tl.mla_apply(tp, cfg, torch.from_numpy(x),
+                                  torch.from_numpy(pos), cache=tc,
+                                  fresh=fresh)
+        assert cache is tc
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        _assert_states(cache, want_cache)
+
+
+def test_mla_prefill_goes_through_the_attention_kernel_padded(monkeypatch):
+    """A fresh MLA prefill calls ``ops.attention`` once, with q, k and v
+    zero-padded to one width the kernel is built for (smoke: 24 and 16 ->
+    32) and scale 1/sqrt(24); a decode step does not call it."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    inner = ops.attention
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), kw))
+        return inner(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "attention", recording)
+    _, cfg, _, tp = _mixer_params(jl.mla_init, "deepseek-v2-236b", 24)
+    x = torch.from_numpy(rand((2, 9, cfg.d_model), 25))
+    pos = torch.arange(9)[None].expand(2, 9)
+    tl.mla_apply(tp, cfg, x, pos, fresh=True)
+    assert calls == [((2, 4, 9, 32),) * 3 + (
+        {"causal": True, "scale": 1.0 / np.sqrt(24)},)]
+    tl.mla_apply(tp, cfg, x[:, :1], pos[:, :1], fresh=True)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("S", [1, 3, 5, 11, 512])
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["fresh", "from-state"])
+def test_layer_mlstm_apply_matches(S, with_state):
+    """mLSTM at the smoke widths (d 64, 2 heads of 64): the unrolled
+    recurrence (S <= 4) and the chunked-parallel form (one chunk of 5 or
+    11, two chunks of 256 at S = 512), from the zero state and from a
+    random one; the state written in place."""
+    jcfg, cfg, jp, tp = _mixer_params(jl.mlstm_init, "xlstm-350m", 26)
+    x = rand((2, S, cfg.d_model), 27)
+    jstate, tstate = _states(jcfg, BlockSpec("mlstm", "none"), 2, 8,
+                             seed=28 if with_state else None)
+    if not with_state:
+        jstate, tstate = None, None
+    want, want_state = jl.mlstm_apply(jp, jcfg, jnp.asarray(x), jstate)
+    got, got_state = tl.mlstm_apply(tp, cfg, torch.from_numpy(x), tstate)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    if with_state:
+        assert got_state is tstate
+    _assert_states(got_state, want_state)
+
+
+def test_mlstm_refuses_a_length_no_chunk_count_divides():
+    """S = 513: nc = 2 chunks of 256 do not cover it; the reference's
+    reshape fails, and so does the port."""
+    jcfg, cfg, jp, tp = _mixer_params(jl.mlstm_init, "xlstm-350m", 29)
+    x = rand((1, 513, cfg.d_model), 30)
+    with pytest.raises(TypeError):
+        jl.mlstm_apply(jp, jcfg, jnp.asarray(x))
+    with pytest.raises(ValueError, match="513"):
+        tl.mlstm_apply(tp, cfg, torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("S", [1, 7])
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["fresh", "from-state"])
+def test_layer_slstm_apply_matches(S, with_state):
+    """sLSTM's time loop against the reference's scan, from its initial
+    state (n = 1e-6, m = -10) and from a random one; the state written in
+    place."""
+    jcfg, cfg, jp, tp = _mixer_params(jl.slstm_init, "xlstm-350m", 31)
+    x = rand((2, S, cfg.d_model), 32)
+    jstate, tstate = _states(jcfg, BlockSpec("slstm", "none"), 2, 8,
+                             seed=33 if with_state else None)
+    if not with_state:
+        jstate, tstate = None, None
+    want, want_state = jl.slstm_apply(jp, jcfg, jnp.asarray(x), jstate)
+    got, got_state = tl.slstm_apply(tp, cfg, torch.from_numpy(x), tstate)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    if with_state:
+        assert got_state is tstate
+    _assert_states(got_state, want_state)
+
+
+def test_slstm_state_tensors_share_no_storage():
+    """The reference's initial sLSTM state is one array for ``c`` and
+    ``h``; the port writes states in place, so its four tensors, in the
+    scanned stack and in an unscanned block, must share no storage, and
+    hold the reference's initial values."""
+    from repro_torch.models.blocks import init_cache_for_block
+
+    cfg = get_config("xlstm-350m", smoke=True)
+    stacked = init_caches(cfg, 2, 16, torch.float32)["scan"]["p3"]
+    single = init_cache_for_block(cfg, BlockSpec("slstm", "none"), 2, 16,
+                                  torch.float32)
+    for state in (stacked, single):
+        assert sorted(state) == ["c", "h", "m", "n"]
+        ptrs = {state[k].untyped_storage().data_ptr() for k in state}
+        assert len(ptrs) == 4
+        assert float(state["n"].min()) == float(state["n"].max()) == \
+            np.float32(1e-6)
+        assert float(state["m"].min()) == float(state["m"].max()) == -10.0
+        assert not state["c"].any() and not state["h"].any()
+    single["c"].fill_(1.0)
+    assert not single["h"].any()
+
+
 def test_router_and_a_log_are_fp32_in_a_bf16_model():
     """As in the reference, ``moe/router`` and ``mixer/A_log`` are fp32
     parameters whatever the parameter dtype; every other floating leaf
@@ -306,20 +486,40 @@ def test_router_and_a_log_are_fp32_in_a_bf16_model():
     assert cast["scan"]["p0"]["moe"]["router"].dtype == torch.bfloat16
 
 
+def _extra(cfg, batch, seed):
+    """Precomputed frontend embeddings ``[B, n_frontend_tokens, d]`` for a
+    config with a frontend stub (llava's image tokens), else None."""
+    if cfg.frontend == "none":
+        return None
+    return rand((batch, cfg.n_frontend_tokens, cfg.d_model), seed)
+
+
+def _both(a):
+    """(jnp array, torch tensor) of a NumPy array, or (None, None)."""
+    return (None, None) if a is None else (jnp.asarray(a),
+                                           torch.from_numpy(a))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_apply_logits_match(lms, arch):
+    """The uncached forward's logits and aux loss (llava with its image
+    embeddings prepended)."""
     cfg, jcfg, jvals, tvals = lms[arch]
     tokens = np.random.default_rng(9).integers(0, cfg.vocab, (2, 32))
-    want, _, want_aux = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens))
-    got, caches, aux = lm_apply(tvals, cfg, torch.from_numpy(tokens))
+    jx, tx = _both(_extra(cfg, 2, 19))
+    S = 32 + (0 if tx is None else tx.shape[1])
+    want, _, want_aux = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens),
+                                     extra_embeds=jx)
+    got, caches, aux = lm_apply(tvals, cfg, torch.from_numpy(tokens),
+                                extra_embeds=tx)
     assert caches is None and aux.dtype == torch.float32
     np.testing.assert_allclose(float(aux), float(want_aux), **F32)
     if not cfg.n_experts:
         assert float(aux) == 0.0
-    assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
+    assert got.shape == (2, S, cfg.vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
     last, _, _ = lm_apply(tvals, cfg, torch.from_numpy(tokens),
-                          last_only=True)
+                          extra_embeds=tx, last_only=True)
     np.testing.assert_allclose(last[:, 0].numpy(), got[:, -1].numpy(),
                                **F32)
 
@@ -337,8 +537,9 @@ def test_decode_matches_prefill(lms, arch):
     """Token-by-token decode through the caches against the full forward
     (``tests/test_models_smoke.py:102``; MoE with a capacity factor of
     ``n_experts``, so that no token drops in either), and the cached
-    prefill against the reference's, every cache leaf included (Mamba's
-    conv and ssm states)."""
+    prefill against the reference's, every cache leaf included (MLA's
+    latent cache, the Mamba, mLSTM and sLSTM states; llava's with its
+    image embeddings prepended)."""
     cfg, jcfg, jvals, tvals = lms[arch]
     if cfg.n_experts:
         cfg = cfg.with_(capacity_factor=float(cfg.n_experts))
@@ -358,12 +559,15 @@ def test_decode_matches_prefill(lms, arch):
                                rtol=2e-2, atol=2e-3)
 
     P = 20
-    jc = jax_init_caches(jcfg, B, S + 4, jnp.float32)
+    jx, tx = _both(_extra(cfg, B, 20))
+    T = P + (0 if tx is None else tx.shape[1])
+    jc = jax_init_caches(jcfg, B, T + 4, jnp.float32)
     want, jc, _ = jax_lm_apply(jvals, jcfg, jnp.asarray(tokens[:, :P]),
-                               positions=jnp.tile(jnp.arange(P)[None], (B, 1)),
-                               caches=jc)
-    tc = init_caches(cfg, B, S + 4, torch.float32)
-    got, tc, _ = lm_apply(tvals, cfg, tokens[:, :P], caches=tc, prefill=True)
+                               positions=jnp.tile(jnp.arange(T)[None], (B, 1)),
+                               extra_embeds=jx, caches=jc)
+    tc = init_caches(cfg, B, T + 4, torch.float32)
+    got, tc, _ = lm_apply(tvals, cfg, tokens[:, :P], extra_embeds=tx,
+                          caches=tc, prefill=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
     want_caches = _leaves(np_tree(jc))
     got_caches = _leaves(tc)
@@ -371,6 +575,29 @@ def test_decode_matches_prefill(lms, arch):
     for key, arr in want_caches.items():
         np.testing.assert_allclose(got_caches[key].numpy(), arr,
                                    err_msg=key, **LM_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_caches_and_their_axes_are_the_references(arch):
+    """``init_caches``' shapes and dtypes (bf16 cache) and ``cache_axes``
+    equal the reference's, leaf for leaf, at the full config's layout
+    (shapes at the smoke widths)."""
+    from repro.models.lm import cache_axes as jax_cache_axes
+
+    from repro_torch.models.lm import cache_axes
+
+    cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch, True)
+    want = _leaves(jax.tree.map(
+        lambda a: (tuple(a.shape), str(a.dtype)),
+        jax.eval_shape(lambda: jax_init_caches(jcfg, 2, 24, jnp.bfloat16))))
+    got = _leaves(tree_map(lambda t: (tuple(t.shape), str(t.dtype)
+                                      .removeprefix("torch.")),
+                           init_caches(cfg, 2, 24, torch.bfloat16)))
+    assert got == want
+    axes = _leaves(cache_axes(cfg))
+    assert axes == {k: tuple(v)
+                    for k, v in _leaves(jax_cache_axes(jcfg)).items()}
+    assert axes.keys() == want.keys()
 
 
 def test_prefill_takes_no_positions(lms):
@@ -385,6 +612,19 @@ def test_prefill_takes_no_positions(lms):
     ("xlstm-350m", "A3"), ("deepseek-v2-236b", "A3"),
     ("whisper-base", "A4")])
 def test_unported_kinds_raise_naming_their_roadmap_item(arch, item):
+    """Whisper's encoder-decoder (A4) raises naming its item.  A3's mixers
+    (MLA; mLSTM and sLSTM) are ported: their configs now build, with the
+    reference's parameter shapes, and run a forward."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        lm_init(cfg, torch.Generator().manual_seed(0))
+    if item != "A3":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            lm_init(cfg, torch.Generator().manual_seed(0))
+        return
+    values = param_values(lm_init(cfg, torch.Generator().manual_seed(0)))
+    jtree = jax.eval_shape(lambda: jax_param_values(
+        jax_lm_init(jax.random.PRNGKey(0), jax_get_config(arch, True))))
+    assert shapes(values) == jax.tree.map(lambda a: tuple(a.shape), jtree)
+    logits, _, _ = lm_apply(values, cfg, torch.zeros((1, 6),
+                                                     dtype=torch.int64))
+    assert logits.shape == (1, 6, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())

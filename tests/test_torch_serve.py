@@ -3,8 +3,10 @@
 Greedy tokens must equal the JAX package's ``ServeEngine``'s, token for
 token, on the decoder cases of ``tests/test_serve.py`` (a single prompt,
 equal-length requests batched across groups, and gemma3's sliding-window
-ring cache past its wrap) and on jamba's hybrid caches (Mamba states and
-an attention ring) and arctic's MoE, with the reference's parameters
+ring cache past its wrap), on jamba's hybrid caches (Mamba states and an
+attention ring), arctic's MoE, deepseek's MLA latent cache and xlstm's
+mLSTM and sLSTM states (prompts past 4 tokens take mLSTM's chunked form,
+shorter ones its unrolled recurrence), with the reference's parameters
 carried over by the weight bridge.
 """
 
@@ -34,12 +36,15 @@ CASES = [("tinyllama-1.1b", 0, 1, 7, 6, 4, 64),
          ("tinyllama-1.1b", 1, 5, 5, 4, 3, 32),
          ("gemma3-4b", 3, 1, 20, 8, 2, 48),
          ("jamba-v0.1-52b", 2, 3, 9, 6, 2, 32),
-         ("arctic-480b", 4, 3, 10, 5, 2, 32)]
+         ("arctic-480b", 4, 3, 10, 5, 2, 32),
+         ("deepseek-v2-236b", 5, 3, 9, 6, 2, 32),
+         ("xlstm-350m", 6, 3, 9, 6, 2, 32),
+         ("xlstm-350m", 7, 2, 3, 6, 2, 16)]
 
 
 @pytest.mark.parametrize("case", CASES,
                          ids=["single", "batched", "ring-cache", "hybrid",
-                              "moe"])
+                              "moe", "mla", "xlstm", "xlstm-short"])
 def test_greedy_tokens_equal_the_jax_engine(case):
     arch, seed, n, plen, new, max_batch, max_len = case
     jcfg = jax_get_config(arch, smoke=True)
@@ -151,8 +156,18 @@ def test_cli_cuda_without_a_gpu_exits_2(capsys):
                                        ("deepseek-v2-236b", "A3"),
                                        ("whisper-base", "A4")])
 def test_cli_refuses_unported_archs(arch, item, capsys):
-    assert main(["--device", "cpu", "--smoke", "--arch", arch]) == 2
-    err = capsys.readouterr().err
+    """whisper-base's encoder-decoder (A4) exits 2 naming its item; A3's
+    archs (xlstm-350m, deepseek-v2-236b) are ported and served."""
+    rc = main(["--device", "cpu", "--smoke", "--arch", arch])
+    out, err = capsys.readouterr()
+    if item == "A3":
+        assert rc == 0 and not err
+        reqs = [line for line in out.splitlines() if line.startswith("req ")]
+        assert len(reqs) == 6
+        assert all(len(json.loads(line.split(": ", 1)[1])) == 8
+                   for line in reqs)
+        return
+    assert rc == 2
     assert err.startswith("error:") and f"ROADMAP {item}" in err
 
 
