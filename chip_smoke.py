@@ -12,10 +12,15 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
 * the planner: the streaming-block kernel bit for bit against its plain
   torch version, on card tensors and as a planner batch from NumPy to
   NumPy (zero copy: the kernel reads and writes pinned host memory), the
-  JAX package's golden artifacts reproduced with the
-  ``torch`` executor on the card, and the planner at the paper's
-  co-exploration settings on the real ResNet-50 netlist through the CLI
-  entry point, byte-equal to the ``vector`` backend's result;
+  JAX package's ten golden artifacts (the ``tpu:`` ones included)
+  reproduced with the ``torch`` executor on the card, the planner at the
+  paper's co-exploration settings on the real ResNet-50 netlist through
+  the CLI entry point, byte-equal to the ``vector`` backend's result, and
+  its plan run through the traffic simulator (``trace --plan``); the HTTP
+  plan server on the card (two identical requests at once, one search, a
+  transformer block, a store hit) and a zoo built, verified and rebuilt,
+  every search byte-equal to ``vector``'s and launching the kernel once a
+  batch;
 * LM serving: the RMSNorm, fused SwiGLU and flash-attention kernels against
   their plain versions in bf16 and fp32 at the serving shapes, at ragged
   ones and across each kernel's tile edges; serving at the full width of
@@ -69,8 +74,9 @@ GOLDEN_DIR = ROOT / "tests" / "golden"
 WORK_DIR = ROOT / "build" / "chip_smoke"
 
 GOLDEN_CASES = tuple(
-    f"{w}.{s}" for w in ("netlib_resnet50", "synthetic_layered24",
-                         "file_diamond") for s in ("ga", "greedy")
+    f"{w}.{s}" for w in ("netlib_resnet50", "tpu_gemma3-4b_L0",
+                         "synthetic_layered24", "file_diamond")
+    for s in ("ga", "greedy")
 ) + ("synthetic_layered24.ga_full", "synthetic_layered24.ga_noc")
 
 # batch sizes of the kernel-against-plain phase: empty, one lane, both
@@ -320,15 +326,16 @@ def _golden_spec(case: str):
     return doc, spec_from_reference(json.dumps(doc["spec"]))
 
 
-def phase_golden() -> None:
+def phase_golden() -> int:
     """The JAX package's golden artifacts, reproduced with the torch
-    executor on the card."""
+    executor on the card; returns the kernel's launches."""
     from repro_torch.api import build_workload, run
     from repro_torch.bridge import result_to_reference_dict
     from repro_torch.core import CachedEvaluator, TorchExecutor
     from repro_torch.kernels import finish_batch as fb
     from repro_torch.obs import Recorder, recording
 
+    total = 0
     for case in GOLDEN_CASES:
         golden, spec = _golden_spec(case)
         g = build_workload(spec.workload)
@@ -339,6 +346,7 @@ def phase_golden() -> None:
         with recording(rec):
             res = run(spec, graph=g, ev=ev)
         launches = fb.launches
+        total += launches
         batches = rec.counters.get("engine.array_batches", 0)
         equal = result_to_reference_dict(res) == golden
         emit({"phase": "golden", "case": case, "equal": equal,
@@ -349,6 +357,7 @@ def phase_golden() -> None:
         if launches != batches or (launches == 0) != case.endswith("greedy"):
             raise AssertionError(
                 f"golden {case}: {launches} launches for {batches} batches")
+    return total
 
 
 def _device_activity(prof, kernel_names=("finish_batch_kernel",)) -> dict:
@@ -544,6 +553,276 @@ def phase_timing(n: int, link: dict) -> dict:
                                   + 44 * n / link["d2h"]) * 1e3,
            "link_bytes_per_s": link}
     emit(out)
+    return out
+
+
+# -- the planner's services ---------------------------------------------------
+
+# the plan server's traffic: the paper's energy co-exploration of ResNet-50
+# (alpha 0.002, shared buffers, population 500) at a tenth of full_run's
+# samples, asked twice at once, then a transformer block by greedy, then the
+# first spec again
+PLAN_SERVER_GA = dict(workload="netlib:resnet50", strategy="ga",
+                      metric="energy", alpha=0.002, hw_mode="shared",
+                      budget=5_000, population=500)
+PLAN_SERVER_GREEDY = "tpu:tinyllama-1.1b:0?tokens=4096"
+# the zoo's grid: both objectives and both strategies of the zoo's defaults
+# on one netlist and one transformer block, at the zoo's default budget
+ZOO_ARGS = ("--workloads", f"netlib:resnet50,{PLAN_SERVER_GREEDY}",
+            "--budget", "2000")
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured; returns both."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_planner_trace(full: dict) -> dict:
+    """``trace --plan`` on ``full_run``'s result from the card and on the
+    ``vector`` backend's: both cross-validate, and their traces are
+    byte-equal."""
+    from repro_torch.api import cli
+    from repro_torch.kernels import finish_batch as fb
+
+    out = {"phase": "planner_trace", "plan": full["args"]}
+    traces = {}
+    fb.launches = 0
+    for name in ("torch", "vector"):
+        path = WORK_DIR / f"full_trace_{name}.json"
+        t0 = time.perf_counter()
+        rc, text = _quiet(cli.main, [
+            "--device", "cuda", "trace", "--plan",
+            str(WORK_DIR / f"full_{name}.json"), "--out", str(path)])
+        out[f"host_s_{name}"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"trace --plan ({name}) exited {rc}:\n{text}")
+        traces[name] = path.read_text()
+    out["kernel_launches"] = fb.launches
+    doc = json.loads(traces["torch"])
+    out.update({
+        "trace_bytes": len(traces["torch"]),
+        "steps": len(doc["steps"]), "subgraphs": len(doc["subgraphs"]),
+        "cycles": doc["totals"]["cycles"],
+        "dram_bytes": doc["totals"]["dram_bytes"],
+        "validation_ok": doc["meta"]["validation"]["ok"],
+        "bandwidth_gb_s": {k: doc["profile"][k] / 1e9 for k in (
+            "peak", "p99", "p95", "p50", "sustained")},
+        "byte_equal_to_vector": traces["torch"] == traces["vector"],
+    })
+    emit(out)
+    if not out["validation_ok"] or not out["byte_equal_to_vector"]:
+        raise AssertionError("planner_trace: the trace does not cross-"
+                             "validate or differs from vector's")
+    return out
+
+
+def _plan_server_specs():
+    from repro_torch.api import ExploreSpec, GAOptions
+    from repro_torch.core import HWSpace, Objective
+
+    ga = PLAN_SERVER_GA
+    return (ExploreSpec(workload=ga["workload"], strategy=ga["strategy"],
+                        objective=Objective(metric=ga["metric"],
+                                            alpha=ga["alpha"]),
+                        hw=HWSpace(mode=ga["hw_mode"]),
+                        sample_budget=ga["budget"], seed=0,
+                        options=GAOptions(population=ga["population"])),
+            ExploreSpec(workload=PLAN_SERVER_GREEDY, strategy="greedy"))
+
+
+def _vector_batches(specs, store_dir):
+    """Each spec searched on the ``vector`` backend into a fresh store:
+    its results, and the batches of the searches (the batching is the
+    ``torch`` backend's)."""
+    import shutil
+
+    from repro_torch.api import ResultStore, run
+    from repro_torch.obs import Recorder, recording
+
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = ResultStore(store_dir)
+    rec = Recorder()
+    with recording(rec):
+        results = [run(s, store=store, eval_backend="vector",
+                       device="cuda") for s in specs]
+    return results, rec.counters.get("engine.array_batches", 0)
+
+
+def _artifact_bytes(root: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(root.glob("*.json"))}
+
+
+def phase_plan_server() -> dict:
+    """The port's HTTP plan server on the card: two identical GA requests
+    at once (one search, one dedup join), a greedy request on a
+    transformer block, then the first spec again (a store hit); every
+    searched result byte-equal to the ``vector`` backend's."""
+    import shutil
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import ResultStore
+    from repro_torch.kernels import finish_batch as fb
+    from repro_torch.serve import PlanService, request_plan, serve_in_thread
+    from repro_torch.serve.plans import fetch_metrics, fetch_stats
+
+    store_dir = WORK_DIR / "plan_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    ga, greedy = _plan_server_specs()
+    svc = PlanService(ResultStore(store_dir), workers=2, device="cuda")
+    server = serve_in_thread(svc)
+    latencies, docs = [], []
+
+    def ask(spec, label):
+        t0 = time.perf_counter()
+        doc = request_plan(server.url, spec)
+        latencies.append({"request": label, "served_from":
+                          doc["served_from"], "deduped": doc["deduped"],
+                          "client_ms": (time.perf_counter() - t0) * 1e3,
+                          "server_ms": doc["latency_ms"]})
+        docs.append((spec, doc))
+
+    try:
+        fb.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            barrier = threading.Barrier(2)
+
+            def first(i):
+                barrier.wait()
+                ask(ga, f"resnet50_ga_{i}")
+
+            threads = [threading.Thread(target=first, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("plan_server: a request did not finish")
+            ask(greedy, "tinyllama_block_greedy")
+            ask(ga, "resnet50_ga_again")
+            wall = time.perf_counter() - t0
+        launches = fb.launches
+        stats = fetch_stats(server.url)
+        metrics = fetch_metrics(server.url)
+    finally:
+        server.close()
+    activity = _device_activity(prof)
+    (vec_ga, vec_greedy), batches = _vector_batches(
+        (ga, greedy), WORK_DIR / "plan_store_vector")
+    want = {id(ga): json.loads(vec_ga.to_json()),
+            id(greedy): json.loads(vec_greedy.to_json())}
+    results_equal = all(doc["ok"] and doc["result"] == want[id(spec)]
+                        for spec, doc in docs)
+    store_equal = _artifact_bytes(store_dir) == \
+        _artifact_bytes(WORK_DIR / "plan_store_vector")
+    samples = {}
+    for line in metrics.splitlines():
+        if line and not line.startswith("#"):
+            key, raw = line.rsplit(" ", 1)
+            samples[key] = float(raw)
+    server_doc = stats["server"]
+    counts = {k: server_doc[k] for k in ("requests", "searches",
+                                         "dedup_joins", "store_hits",
+                                         "errors")}
+    out = {"phase": "plan_server", "workers": 2, "device": "cuda",
+           "requests": latencies, "wall_s": wall, "counts": counts,
+           "metrics_samples": len(samples),
+           "kernel_launches": launches, "array_batches": batches,
+           **activity,
+           "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3
+                                 / wall if activity["device_events"]
+                                 else None),
+           "results_byte_equal_to_vector": results_equal,
+           "store_byte_equal_to_vector": store_equal}
+    emit(out)
+    if not (results_equal and store_equal):
+        raise AssertionError("plan_server: a result differs from vector's")
+    if counts != {"requests": 4, "searches": 2, "dedup_joins": 1,
+                  "store_hits": 1, "errors": 0}:
+        raise AssertionError(f"plan_server: /stats counts {counts}")
+    if samples.get("repro_plan_requests_total") != 4:
+        raise AssertionError("plan_server: /metrics does not parse")
+    if launches == 0 or launches != batches:
+        raise AssertionError(
+            f"plan_server: {launches} launches for {batches} batches")
+    return out
+
+
+def phase_zoo() -> dict:
+    """``zoo build`` of a two-workload grid on the card, ``zoo verify``
+    and ``zoo ls``; a second build replays every spec."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import cli
+    from repro_torch.kernels import finish_batch as fb
+    from repro_torch.obs import Recorder, recording
+
+    zoo_dir = WORK_DIR / "zoo"
+    shutil.rmtree(zoo_dir, ignore_errors=True)
+    where = ("--zoo-dir", str(zoo_dir))
+    rec = Recorder()
+    fb.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with recording(rec):
+            rc, build_text = _quiet(cli.main, [
+                "--device", "cuda", "zoo", "build", *where, *ZOO_ARGS])
+        build_s = time.perf_counter() - t0
+    launches = fb.launches
+    activity = _device_activity(prof)
+    if rc != 0:
+        raise AssertionError(f"zoo build exited {rc}:\n{build_text}")
+    t0 = time.perf_counter()
+    rc_verify, verify_text = _quiet(cli.main, ["zoo", "verify", *where])
+    verify_s = time.perf_counter() - t0
+    rc_ls, ls_text = _quiet(cli.main, ["zoo", "ls", "--json", *where,
+                                       *ZOO_ARGS])
+    fb.launches = 0
+    t0 = time.perf_counter()
+    rc_again, again_text = _quiet(cli.main, [
+        "--device", "cuda", "zoo", "build", *where, *ZOO_ARGS])
+    again_s = time.perf_counter() - t0
+    ls = json.loads(ls_text) if rc_ls == 0 else {}
+    batches = rec.counters.get("engine.array_batches", 0)
+    out = {"phase": "zoo", "args": list(ZOO_ARGS),
+           "build_s": build_s, "verify_s": verify_s, "rebuild_s": again_s,
+           "summary": build_text.strip().splitlines()[-1],
+           "verify": verify_text.strip().splitlines()[-1],
+           "rebuild": again_text.strip().splitlines()[-1],
+           "archived": ls.get("archived"), "grid": len(ls.get("rows", [])),
+           "kernel_launches": launches, "array_batches": batches,
+           "rebuild_launches": fb.launches, **activity,
+           "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3
+                                 / build_s if activity["device_events"]
+                                 else None)}
+    emit(out)
+    if rc_verify != 0 or "verified clean" not in out["verify"]:
+        raise AssertionError("zoo verify found problems")
+    if (out["archived"], out["grid"]) != (8, 8):
+        raise AssertionError(f"zoo ls: {out['archived']}/{out['grid']}")
+    if rc_again != 0 or "0 built, 8 already archived, 0 failed" not in \
+            out["rebuild"] or fb.launches:
+        raise AssertionError("a second zoo build searched again")
+    if launches == 0 or launches != batches:
+        raise AssertionError(f"zoo: {launches} launches for {batches} "
+                             f"batches")
     return out
 
 
@@ -1595,8 +1874,8 @@ def phase_lm_timing() -> dict:
     return rows
 
 
-PHASES = ("kernel_vs_plain", "golden", "full_run", "timing",
-          "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
+PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
+          "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
           "lm_timing")
 # the phases that serve at full width, whose launches the kernels line sums
@@ -1612,6 +1891,8 @@ def main(argv=None) -> int:
     only = set(args.only.split(",")) if args.only else None
     if only and not only <= set(PHASES):
         ap.error(f"unknown phase(s): {sorted(only - set(PHASES))}")
+    if only and "planner_trace" in only and "full_run" not in only:
+        ap.error("planner_trace traces full_run's result: add full_run")
     if not (SRC / "repro_torch").is_dir() or not GOLDEN_DIR.is_dir():
         print("error: chip_smoke.py runs from the root of a checkout of the "
               "repository (src/repro_torch and tests/golden are missing)",
@@ -1632,9 +1913,19 @@ def main(argv=None) -> int:
     device = phase_device()
     phase_build()
     max_err = phase_kernel_vs_plain() if run("kernel_vs_plain") else None
+    b1_launches = {}
     if run("golden"):
-        phase_golden()
+        b1_launches["golden"] = phase_golden()
     full = phase_full_run() if run("full_run") else None
+    if full:
+        b1_launches["full_run"] = full["kernel_launches"]
+    if run("planner_trace"):
+        b1_launches["planner_trace"] = \
+            phase_planner_trace(full)["kernel_launches"]
+    if run("plan_server"):
+        b1_launches["plan_server"] = phase_plan_server()["kernel_launches"]
+    if run("zoo"):
+        b1_launches["zoo"] = phase_zoo()["kernel_launches"]
     if run("timing"):
         main_n = max(1, round(full["mean_batch_lanes"])) if full else 185
         link = _link_rates()
@@ -1666,7 +1957,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": full["kernel_launches"],
+        "launches": sum(b1_launches.values()),
+        "launches_by_path": b1_launches,
         "bitwise_equal": max_err == 0,
         "max_abs_err": max_err,
         "n": main_n,

@@ -17,8 +17,8 @@ evaluator (``jobs=N`` fans them out over worker processes), a
 and :func:`register_strategy` to plug in new methods.
 
 Workloads are URIs resolved by :mod:`repro_torch.api.workloads`
-(``netlib:resnet50``, ``synthetic:layered:24?seed=7``, ``file:graph.json``;
-bare names alias to ``netlib:``) — see :func:`register_workload_scheme` to
+(``netlib:resnet50``, ``tpu:gemma3-4b:0``, ``synthetic:layered:24?seed=7``,
+``file:graph.json``; bare names alias to ``netlib:``) — see :func:`register_workload_scheme` to
 add a scheme, and ``python -m repro_torch workloads ls`` to enumerate what
 resolves.
 """

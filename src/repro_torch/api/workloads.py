@@ -5,6 +5,10 @@ Every :class:`ExploreSpec` names its workload as a URI ``<scheme>:<rest>``
 :func:`build_workload` dispatches on an open scheme registry.  Built-ins:
 
 * ``netlib:<model>`` — the paper's model zoo (:data:`repro_torch.core.netlib.PAPER_MODELS`).
+* ``tpu:<config>:<layer>[?tokens=N&tp=K]`` — one transformer block of a
+  bundled :mod:`repro_torch.configs` architecture, lowered through
+  :func:`repro_torch.core.tpu_adapter.build_block_graph` (rows = tokens); this
+  makes the MoE/Mamba/ViT block graphs explorable by every strategy.
 * ``synthetic:<kind>:<n>[?seed=S&...]`` — seeded random DAG generators
   (``layered`` | ``branchy`` | ``diamond`` | ``chain`` | ``pyramid``) for
   stress and fuzz workloads; deterministic in the URI, so fingerprints and
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import math
 import random
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -43,7 +48,7 @@ class WorkloadScheme:
 
     name: str
     build: Callable[[str, Dict[str, str]], Graph]   # (rest, params) -> Graph
-    syntax: str                                     # e.g. "synthetic:<kind>:<n>[?seed=S]"
+    syntax: str                                     # e.g. "tpu:<config>:<layer>[?tokens=N]"
     description: str
     # display rows for `python -m repro_torch workloads ls` (may be templates)
     list_fn: Optional[Callable[[], List[str]]] = None
@@ -162,7 +167,7 @@ def list_workloads(scheme: Optional[str] = None,
     """``(uri, note)`` rows for ``workloads ls``.
 
     Default: display rows, which may be compact templates
-    (``synthetic:layered:<n>[?seed=S]``).  With
+    (``tpu:<arch>:0..N``, ``synthetic:layered:<n>[?seed=S]``).  With
     ``concrete=True``, only URIs that :func:`build_workload` actually
     resolves are returned (schemes without enumerable instances contribute
     nothing) — the script-friendly ``workloads ls --uris-only`` contract.
@@ -233,6 +238,76 @@ def _build_netlib(rest: str, params: Dict[str, str]) -> Graph:
 
     _reject_extra_params("netlib", params)
     return netlib.build(rest)
+
+
+# ---------------------------------------------------------------------------
+# tpu: transformer block graphs of the bundled model configs
+# ---------------------------------------------------------------------------
+
+def _canonical_arch_key(name: str) -> str:
+    return re.sub(r"[-_.]", "", name.lower())
+
+
+def _resolve_arch(name: str) -> str:
+    """Accept both registry spellings and separator-free aliases
+    (``gemma3_4b`` == ``gemma3-4b``)."""
+    from repro_torch.configs import ARCHS
+
+    if name in ARCHS:
+        return name
+    wanted = _canonical_arch_key(name)
+    matches = [a for a in ARCHS if _canonical_arch_key(a) == wanted]
+    if len(matches) == 1:
+        return matches[0]
+    raise ValueError(f"unknown tpu config {name!r}; known: {list(ARCHS)}")
+
+
+def _list_tpu() -> List[str]:
+    from repro_torch.configs import ARCHS, get_config
+
+    return [f"tpu:{arch}:0..{get_config(arch).n_layers - 1}"
+            for arch in ARCHS]
+
+
+def _expand_tpu() -> List[str]:
+    from repro_torch.configs import ARCHS, get_config
+
+    return [f"tpu:{arch}:{layer}" for arch in ARCHS
+            for layer in range(get_config(arch).n_layers)]
+
+
+@register_workload_scheme(
+    "tpu",
+    syntax="tpu:<config>:<layer>[?tokens=N&tp=K]",
+    description="one transformer block of a bundled model config "
+                "(rows = tokens, TP-sharded)",
+    list_fn=_list_tpu,
+    expand_fn=_expand_tpu,
+)
+def _build_tpu(rest: str, params: Dict[str, str]) -> Graph:
+    from repro_torch.configs import get_config
+    from repro_torch.core.tpu_adapter import build_block_graph
+
+    cfg_name, sep, layer_raw = rest.rpartition(":")
+    if not sep:
+        raise ValueError(
+            f"tpu workload needs a layer index: tpu:<config>:<layer>, "
+            f"got tpu:{rest!r}")
+    try:
+        layer_idx = int(layer_raw)
+    except ValueError:
+        raise ValueError(
+            f"tpu layer index must be an integer, got {layer_raw!r}") \
+            from None
+    tokens = _int_param(params, "tokens", 8192)
+    tp = _int_param(params, "tp", 16)
+    _reject_extra_params("tpu", params)
+    cfg = get_config(_resolve_arch(cfg_name))
+    if not (0 <= layer_idx < cfg.n_layers):
+        raise ValueError(
+            f"layer {layer_idx} out of range for {cfg.name} "
+            f"(0..{cfg.n_layers - 1})")
+    return build_block_graph(cfg, layer_idx, tokens, tp_degree=tp)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ from .partition import (
     split_to_fit,
     split_to_fit_batch,
 )
+from .simulate import DeadlockError, SimResult, simulate_subgraph
 from .tiling import SubgraphSchedule, TensorSchedule, derive_schedule
 
 __all__ = [k for k in dir() if not k.startswith("_")]

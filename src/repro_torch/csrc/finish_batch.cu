@@ -105,9 +105,15 @@ extern "C" int finish_batch_launch(const void* in, void* out, long long n,
 // The device pointer through which kernels on the current device reach the
 // host allocation at `host` (pinned memory is mapped under unified
 // addressing); cudaErrorInvalidValue if `host` is not mapped host memory.
+// cudaFree(nullptr) first makes the current device's primary context
+// current on the calling thread: a thread that has made no CUDA call yet
+// (its pinned buffers came from torch's cache) has none, and without one
+// cudaPointerGetAttributes gives no device pointer.
 extern "C" int finish_batch_device_ptr(const void* host, void** dev) {
+  cudaError_t err = cudaFree(nullptr);
+  if (err != cudaSuccess) return (int)err;
   cudaPointerAttributes attr;
-  const cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  err = cudaPointerGetAttributes(&attr, host);
   if (err != cudaSuccess) return (int)err;
   if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
     return (int)cudaErrorInvalidValue;

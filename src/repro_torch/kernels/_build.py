@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -66,6 +67,9 @@ _SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# held while a library is built and loaded: threads that ask for the same
+# library at once (the plan server's search workers) build it once
+_LOAD_LOCK = threading.Lock()
 
 # the current device and a device's current stream, read straight from
 # torch's C bindings (a CPU-only build has neither, and launches nothing)
@@ -121,9 +125,10 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, out in todo.items():
-        # build under a private name, then rename: concurrent builders
-        # never load a half-written library
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        # build under a name private to this process and thread, then
+        # rename: concurrent builders never load a half-written library
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, cmd, subprocess.Popen(
@@ -152,14 +157,19 @@ def ptxas_report(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``, with typed entry
-    points; loaded once per process."""
+    points; built and loaded once per process, whatever the number of
+    threads that ask for it."""
     lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LOADED[name] = lib
     return lib
 
 

@@ -45,6 +45,9 @@ N_OUT = 9
 #: launches of the CUDA kernel in this process (the wrapper adds one per
 #: launch and nowhere else; callers may reset it to 0)
 launches = 0
+# the count is shared by every thread that launches (the plan server's
+# search workers)
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def _finish_torch(fp, w_total, single, glb, wbuf, shared, share):
@@ -81,7 +84,8 @@ def _launch(index: int, in_ptr: int, out_ptr: int, n: int) -> None:
     global launches
     _build.launch(_build.load("finish_batch").finish_batch_launch, index,
                   in_ptr, out_ptr, n)
-    launches += 1
+    with _LAUNCHES_LOCK:
+        launches += 1
 
 
 def finish_lanes(lanes: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,28 @@
-"""Telemetry for the port: the ambient span/counter recorder.
+"""Telemetry for the port: spans + counters + exporters, the port's copy of
+``repro.obs`` (docs/observability.md).
 
-The port's copy of ``repro.obs.recorder``.  Telemetry is side-channel only:
-results are byte-identical whether a recorder is installed or not.
+One substrate for every layer's runtime visibility:
+
+* :mod:`repro_torch.obs.recorder` — the ambient :class:`Recorder` (nested
+  spans, counters, timed samples) with a near-zero disabled path.
+* :mod:`repro_torch.obs.perfetto` — Chrome/Perfetto trace-event JSON export of
+  a recorder or a sim ``TrafficTrace``.
+* :mod:`repro_torch.obs.metrics` — Prometheus-style histograms and the text
+  exposition the plan server's ``/metrics`` endpoint serves.
+
+The hard invariant: telemetry is side-channel only.  Results and stored
+artifacts are byte-identical whether a recorder is installed or not.
 """
 
+from .metrics import DEFAULT_LATENCY_BUCKETS, Histogram, render_metrics
+from .perfetto import (
+    TELEMETRY_FORMAT,
+    TELEMETRY_FORMAT_VERSION,
+    chrome_trace_doc,
+    recorder_events,
+    traffic_events,
+    write_chrome_trace,
+)
 from .recorder import (
     NullRecorder,
     Recorder,
@@ -17,6 +36,15 @@ from .recorder import (
 )
 
 __all__ = [
+    "DEFAULT_LATENCY_BUCKETS",
+    "Histogram",
+    "render_metrics",
+    "TELEMETRY_FORMAT",
+    "TELEMETRY_FORMAT_VERSION",
+    "chrome_trace_doc",
+    "recorder_events",
+    "traffic_events",
+    "write_chrome_trace",
     "NullRecorder",
     "Recorder",
     "Span",

@@ -37,6 +37,7 @@ from repro_torch.api import run, spec_key  # noqa: E402
 from repro_torch.api.cli import main  # noqa: E402
 from repro_torch.bridge import graph_from_reference, spec_from_reference  # noqa: E402
 from repro_torch.core.engine import BACKENDS  # noqa: E402
+from repro_torch.core.graph import graph_to_json as port_graph_to_json  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -85,14 +86,26 @@ def test_eval_jobs_without_the_process_backend_exits_2(capsys):
 
 
 def test_workloads_ls_lists_the_reference_uris_but_tpu(capsys):
+    # every URI of the reference, tpu: included; the scheme table differs
+    # only where the file: scheme names its package's graph_to_json
     assert main(["workloads", "ls", "--json"]) == 0
     port = json.loads(capsys.readouterr().out)
     assert ref_main(["workloads", "ls", "--json"]) == 0
     ref = json.loads(capsys.readouterr().out)
     assert [s["name"] for s in port["schemes"]] == \
-        ["file", "netlib", "synthetic"]
-    assert port["workloads"] == [w for w in ref["workloads"]
-                                 if w["scheme"] != "tpu"]
+        ["file", "netlib", "synthetic", "tpu"]
+    assert port["workloads"] == ref["workloads"]
+    assert any(w["scheme"] == "tpu" for w in port["workloads"])
+    for s in port["schemes"]:
+        s["description"] = s["description"].replace("repro_torch.", "repro.")
+    assert port == ref
+    for args in (["--uris-only"], ["--uris-only", "--scheme", "tpu"], []):
+        assert main(["workloads", "ls", *args]) == 0
+        port_text = capsys.readouterr().out
+        assert ref_main(["workloads", "ls", *args]) == 0
+        ref_text = capsys.readouterr().out
+        # the default view's rows after the scheme table (its templates)
+        assert port_text.split("\n\n")[-1] == ref_text.split("\n\n")[-1]
 
 
 @pytest.mark.parametrize("workload_key,strategy", CASES)
@@ -109,8 +122,40 @@ def test_graph_fingerprint_equals_reference(workload_key):
     want = ref_fingerprint(ref_g)
     assert graph_fingerprint(graph_from_reference(graph_to_json(ref_g))) \
         == want
-    if not uri.startswith("tpu:"):
-        assert graph_fingerprint(build_workload(uri)) == want
+    assert graph_fingerprint(build_workload(uri)) == want
+
+
+def _tpu_uris():
+    from repro.configs import ARCHS, get_config
+
+    return [f"tpu:{arch}:{layer}{query}" for arch in ARCHS
+            for layer in sorted({0, get_config(arch).n_layers - 1})
+            for query in ("", "?tokens=4096&tp=4")]
+
+
+@pytest.mark.parametrize("uri", _tpu_uris())
+def test_tpu_block_graph_equals_reference(uri):
+    ref_g = ref_build_workload(uri)
+    g = build_workload(uri)
+    assert graph_fingerprint(g) == ref_fingerprint(ref_g)
+    assert port_graph_to_json(g) == graph_to_json(ref_g)
+
+
+@pytest.mark.parametrize("uri,match", [
+    ("tpu:gemma3-4b", "needs a layer index"),
+    ("tpu:gemma3-4b:x", "must be an integer"),
+    ("tpu:nope:0", "unknown tpu config"),
+    ("tpu:gemma3-4b:9999", "out of range"),
+    ("tpu:gemma3-4b:0?bogus=1", "bogus"),
+])
+def test_tpu_scheme_errors_equal_reference(uri, match):
+    with pytest.raises(ValueError, match=match) as ref_err:
+        ref_build_workload(uri)
+    with pytest.raises(ValueError, match=match) as port_err:
+        build_workload(uri)
+    assert str(port_err.value) == str(ref_err.value)
+    assert graph_fingerprint(build_workload("tpu:gemma3_4b:0")) == \
+        ref_fingerprint(ref_build_workload("tpu:gemma3-4b:0"))
 
 
 def test_store_written_by_either_package_replays_in_the_other(tmp_path):

@@ -1,7 +1,7 @@
 """The port reproduces the JAX package's golden artifacts.
 
-Every ``netlib:``/``synthetic:``/``file:`` golden in ``tests/golden/`` was
-written by the JAX package.  Its spec, read back through the bridge, must
+Every golden in ``tests/golden/`` (``netlib:``, ``tpu:``, ``synthetic:``
+and ``file:`` workloads) was written by the JAX package.  Its spec, read back through the bridge, must
 give the same result dict under the port's ``serial`` backend and under
 its ``torch`` backend on the CPU (the plain version of the CUDA kernel).
 The same specs run on the card in ``chip_smoke.py``.  Tolerance: exact
@@ -26,11 +26,13 @@ from test_golden_workloads import (  # noqa: E402
 from repro_torch.api import run  # noqa: E402
 from repro_torch.bridge import spec_from_reference  # noqa: E402
 
-PORT_CASES = [(w, s) for w, s in CASES if not WORKLOADS[w].startswith("tpu:")]
+PORT_CASES = list(CASES)
 
 
 def test_port_cases_are_the_eight_non_tpu_goldens():
-    assert len(PORT_CASES) == 8
+    # all ten goldens, the two tpu: cases included
+    assert len(PORT_CASES) == 10
+    assert sum(WORKLOADS[w].startswith("tpu:") for w, _ in PORT_CASES) == 2
 
 
 @pytest.mark.parametrize("backend", ["serial", "torch"])

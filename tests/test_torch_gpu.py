@@ -20,7 +20,9 @@ machine without them:
   padded contract at deepseek's prefill shape;
 * B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
   view off a 16-byte boundary (its scalar route);
-* B1's planner batches (zero copy), bitwise, and owning their results.
+* B1's planner batches (zero copy), bitwise, and owning their results;
+* a fresh plan server whose first two searches arrive at once builds B1
+  once and answers both as the ``vector`` backend does.
 """
 
 import sys
@@ -354,3 +356,84 @@ def test_successive_batches_on_the_card_do_not_share_memory():
     second = fb.finish_cost_batch(*_batch(186), device="cuda")
     assert not any(np.shares_memory(a, b) for a in first for b in second)
     assert all(np.array_equal(a, k) for a, k in zip(first, kept))
+
+
+@pytest.mark.gpu
+def test_plan_server_first_requests_build_the_kernel_once(tmp_path,
+                                                         monkeypatch):
+    """Two distinct GA requests reach a fresh plan server at once, with no
+    library built yet: the search threads build B1 once, under one name,
+    and both results equal the ``vector`` backend's."""
+    needs_gpu()
+    import threading
+
+    from repro_torch.api import ExploreSpec, GAOptions, ResultStore, run
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import finish_batch as fb
+    from repro_torch.serve import PlanService
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    specs = [ExploreSpec(workload=w, strategy="ga", sample_budget=400,
+                         options=GAOptions(population=20))
+             for w in ("netlib:resnet50", "synthetic:layered:24?seed=7")]
+    svc = PlanService(ResultStore(tmp_path / "store"), workers=2,
+                      device="cuda")
+    barrier = threading.Barrier(len(specs))
+    out = [None] * len(specs)
+
+    def ask(i):
+        barrier.wait()
+        out[i] = svc.plan(specs[i])
+
+    launches = fb.launches
+    try:
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(specs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        svc.close()
+    assert fb.launches > launches
+    assert [r.served_from for r in out] == ["search", "search"]
+    for spec, resp in zip(specs, out):
+        assert resp.result.to_json() == \
+            run(spec, eval_backend="vector").to_json()
+    built = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert len(built) == 2 and built[0].endswith(".log") \
+        and built[1].endswith(".so") and ".tmp." not in built[1]
+
+
+@pytest.mark.gpu
+def test_a_new_threads_first_batch_on_cached_pinned_memory():
+    """A thread whose first CUDA work is a batch, with its staging buffers
+    served from torch's pinned-memory cache (no CUDA call on that thread
+    before the kernel's), as a plan server's search thread may be."""
+    needs_gpu()
+    import threading
+
+    from repro_torch.kernels import finish_batch as fb
+
+    fb.finish_cost_batch(*_batch(185), device="cuda")   # library loaded
+    for rows in (fb.N_IN, fb.N_OUT):   # the first staging buffers' sizes
+        torch.empty(rows * 1024, dtype=torch.int64, pin_memory=True)
+    args = _batch(185)
+    out = {}
+
+    def first_batch():
+        try:
+            out["got"] = fb.finish_cost_batch(*args, device="cuda")
+        except RuntimeError as err:
+            out["err"] = err
+
+    t = threading.Thread(target=first_batch)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert "err" not in out, out.get("err")
+    want = fb.finish_cost_batch(*args, device="cpu")
+    for g, w in zip(out["got"], want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
