@@ -40,10 +40,24 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   v padded to 256 columns; 160 routed experts and 2 shared through the
   fused SwiGLU kernel) and xlstm-350m at full width and depth, each served
   as jamba is; both smoke configs in fp32 on the card against the CPU, and
-  ``launch.serve`` on each.
+  ``launch.serve`` on each;
+* whisper-base at its published widths through ``EncDecEngine`` (8 rows of
+  1,500 frames: the encoder's attention through the flash-attention
+  kernel non-causally, once per encoder layer), and its fp32 smoke config
+  on the card against the CPU;
+* training: each kernel's autograd Function, its backward formulas
+  against autograd through the plain version; tinyllama-1.1b trained whole
+  through ``launch.train`` (every parameter's gradient checked, launches
+  held to the structure under remat and two microbatches, a
+  fault-injected restart that must replay the uninterrupted run's losses
+  bit for bit, a full-width checkpoint that must restore bit for bit);
+  one smoke train step of tinyllama, jamba and xlstm on the card against
+  the CPU.
 
 Last it times every kernel beside its plain version, its bound and the
-library call where one computes the same function; a call that moves
+library call where one computes the same function (and each backward
+formula beside autograd through the plain version and the library call
+or composite); a call that moves
 more than a few MB is also timed over enough input sets to exceed twice
 the L2, so that it reads from device memory, and the planner's batch is
 timed from NumPy to NumPy beside the host link's measured rate.
@@ -159,14 +173,18 @@ MLA_ATTN_CASES = ((8, 128, 512, 192, 128, "bfloat16"),
 ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               (8, 32, 8, 512, 128, True, 0),  # jamba's attention
               (2, 4, 4, 130, 32, True, 48), (1, 2, 2, 100, 128, False, 0),
-              (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0))
+              (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0),
+              (8, 8, 8, 1500, 64, False, 0))  # whisper's encoder
 # B2's tile edges (64 queries, 64 keys): every S, with and without a window
 # (40 keys: its edge falls inside tiles), every head dim, and Hkv of 1, H/8
 # and H query heads' worth, causal, at B 1, H 16
 ATTN_SWEEP_S = (1, 63, 64, 65, 127, 128, 129, 200, 512, 1024)
 ATTN_SWEEP = tuple((1, 16, hkv, s, d, True, w) for s in ATTN_SWEEP_S
                    for w in (0, 40) for d in (16, 32, 64, 128, 256)
-                   for hkv in (1, 2, 16))
+                   for hkv in (1, 2, 16)) + tuple(
+    # non-causal (whisper's encoder) on the TMA + wgmma route's head dims
+    (1, 16, hkv, s, d, False, 0) for s in ATTN_SWEEP_S for d in (64, 128)
+    for hkv in (1, 16))
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -874,6 +892,49 @@ XLSTM_ARCH = "xlstm-350m"
 MLA_XLSTM_VS_CPU_ARCHS = (MLA_ARCH, XLSTM_ARCH)
 
 
+# serve_whisper: whisper-base (arXiv:2212.04356) at its published widths
+# (6 encoder + 6 decoder layers, d 512, 8 heads = 8 KV heads, d_head 64,
+# GeLU FFN 2,048, vocab 51,865, tied embeddings, 1,500 frames a row), bf16
+# compute with a bf16 cache, random weights from seed 0 drawn on the card,
+# 8 rows of 1,500 frames drawn from the seed with NumPy (as launch.serve
+# draws its frames), 32 new tokens; first, warm and traced passes
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_NEW_TOKENS = "whisper-base", 8, 32
+# whisper_vs_cpu: its fp32 smoke config, card against CPU: the encoder's
+# output and the logits within SERVE_VS_CPU_TOL, the tokens equal
+# train: tinyllama-1.1b whole (22 layers, d 2048) through launch.train.run:
+# fp32 parameters and AdamW state, bf16 compute, remat "full", SyntheticLM
+# batches of 8 x 512 in 2 microbatches, lr 3e-3, warmup 2, 6 steps; then
+# again with a checkpoint directory, a save every 3 steps and a failure
+# injected at step 4
+TRAIN_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b", "--steps",
+              "6", "--batch", "8", "--seq", "512", "--microbatches", "2",
+              "--lr", "3e-3", "--warmup", "2", "--seed", "0",
+              "--log-every", "1")
+TRAIN_FAIL_ARGS = ("--save-every", "3", "--fail-at", "4")
+# train_vs_cpu: one step of these smoke configs in fp32, card against CPU:
+# the loss within 1e-5, every gradient within 1e-4 of the CPU's relative
+# to its norm (the backward sums in other orders through every layer), the
+# same experts chosen
+TRAIN_VS_CPU_ARCHS = ("tinyllama-1.1b", "jamba-v0.1-52b", "xlstm-350m")
+TRAIN_VS_CPU_LOSS_TOL, TRAIN_VS_CPU_GRAD_TOL = 1e-5, 1e-4
+# the kernels' autograd Functions: backward against autograd through the
+# plain versions on the card, (shape, dtype): the train step's shapes
+# (tinyllama-1.1b, a microbatch of 4 x 512; B2 with GQA 32 / 4 heads),
+# whisper's encoder attention (non-causal, S 1,500) and norm (d 512 over
+# 8 x 1,500 rows), and small fp32 ones
+BACKWARD_CASES = (
+    ("flash_attention", (4, 32, 4, 512, 64, True), "bfloat16"),
+    ("flash_attention", (8, 8, 8, 1500, 64, False), "bfloat16"),
+    ("flash_attention", (1, 4, 2, 100, 64, True), "float32"),
+    ("flash_attention", (2, 4, 4, 150, 32, False), "float32"),
+    ("fused_ffn", (2048, 2048, 5632), "bfloat16"),
+    ("fused_ffn", (77, 256, 512), "float32"),
+    ("rmsnorm", (2048, 2048), "bfloat16"),
+    ("rmsnorm", (12000, 512), "bfloat16"),
+    ("rmsnorm", (300, 512), "float32"),
+)
+
+
 def _lm_counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
@@ -945,32 +1006,42 @@ def _serve_cli(args, n, new_tokens, vocab) -> tuple:
     return tokens, groups
 
 
-def _per_forward(cfg) -> dict:
-    """Launches of each kernel in one forward of ``cfg`` (attention and
-    MLA: in a prefill of more than one token; decode attends over the
-    cache in plain torch): per layer one norm before the mixer, one before
-    the FFN if it has one, 2 more for qk-norm, MLA's ``kv_norm`` and
-    ``q_norm`` (with a q LoRA), mLSTM's and sLSTM's ``out_norm``; the
-    final norm; the fused SwiGLU once for a dense FFN, once for each
+def _per_layer(cfg, spec) -> dict:
+    """Launches of each kernel in one layer of ``spec`` in a forward of
+    ``cfg`` (attention and MLA: in a prefill of more than one token;
+    decode attends over the cache in plain torch): one norm before the
+    mixer, one before the FFN if it has one, 2 more for qk-norm, MLA's
+    ``kv_norm`` and ``q_norm`` (with a q LoRA), mLSTM's and sLSTM's
+    ``out_norm``; the fused SwiGLU once for a dense FFN, once for each
     expert of a MoE (every expert, every call), once for its shared
-    experts and once for Arctic's dense residual FFN."""
+    experts and once for Arctic's dense residual FFN; attention once."""
     from repro_torch.models.config import (ATTN, ATTN_LOCAL, ATTN_MLA,
                                            FFN_DENSE, FFN_MOE,
                                            FFN_MOE_RESIDUAL, FFN_NONE,
                                            MLSTM, SLSTM)
 
-    specs = cfg.block_specs()
     moe = cfg.n_experts + (1 if cfg.n_shared_experts else 0)
     ffn = {FFN_DENSE: 1, FFN_MOE: moe, FFN_MOE_RESIDUAL: moe + 1,
            FFN_NONE: 0}
-    attn = sum(s.mixer in (ATTN, ATTN_LOCAL) for s in specs)
-    mla = sum(s.mixer == ATTN_MLA for s in specs)
-    lstm = sum(s.mixer in (MLSTM, SLSTM) for s in specs)
-    return {"rmsnorm": sum(1 + (s.ffn != FFN_NONE) for s in specs) + 1
-            + 2 * attn * cfg.qk_norm + mla * (1 + bool(cfg.q_lora_rank))
-            + lstm,
-            "fused_ffn": sum(ffn[s.ffn] for s in specs),
-            "flash_attention": attn + mla}
+    attn = spec.mixer in (ATTN, ATTN_LOCAL)
+    mla = spec.mixer == ATTN_MLA
+    return {"rmsnorm": 1 + (spec.ffn != FFN_NONE) + 2 * attn * cfg.qk_norm
+            + mla * (1 + bool(cfg.q_lora_rank))
+            + (spec.mixer in (MLSTM, SLSTM)),
+            "fused_ffn": ffn[spec.ffn], "flash_attention": attn + mla}
+
+
+def _per_forward(cfg, scanned_times: int = 1) -> dict:
+    """Launches of each kernel in one forward of ``cfg``: its layers' (the
+    scanned periods' ``scanned_times`` over: 2 in a train step under
+    remat, whose backward recomputes them) and the final norm's."""
+    pre, p, reps, _ = cfg.layout()
+    out = {"rmsnorm": 1, "fused_ffn": 0, "flash_attention": 0}
+    for li, spec in enumerate(cfg.block_specs()):
+        times = scanned_times if pre <= li < pre + p * reps else 1
+        for lib, n in _per_layer(cfg, spec).items():
+            out[lib] += times * n
+    return out
 
 
 def _structural(cfg, groups) -> dict:
@@ -1287,8 +1358,10 @@ class _RouterChoices:
         self.calls, self._inner = [], blocks.moe_apply
 
         def recording(params, cfg, x, act="silu"):
-            gates = torch.softmax(x.float() @ params["router"].float(), -1)
-            top = torch.topk(gates, cfg.top_k + 1, dim=-1)
+            with torch.no_grad():
+                gates = torch.softmax(
+                    x.float() @ params["router"].float(), -1)
+                top = torch.topk(gates, cfg.top_k + 1, dim=-1)
             k = cfg.top_k
             self.calls.append((
                 top.indices[..., :k].sort(-1).values.cpu(),
@@ -1415,6 +1488,408 @@ def phase_mla_xlstm_vs_cpu() -> dict:
                                     for arch in MLA_XLSTM_VS_CPU_ARCHS]}
 
 
+# -- whisper and training -----------------------------------------------------
+
+# the device these phases run on (a rehearsal of their control flow may
+# point it at the CPU; the script itself always runs on the card)
+CARD = "cuda"
+
+def _whisper_launches(cfg, steps: int) -> dict:
+    """Launches of one ``transcribe`` of ``steps`` tokens: the encoder once
+    (B2 at every layer, non-causal; B4 before its mixer and FFN and
+    ``enc_norm``), then per step the decoder's B4 before self-attention,
+    cross-attention and the FFN at each layer and the final norm (one
+    token a step: its self-attention is plain; the FFN is GeLU: no B3)."""
+    enc = _per_layer(cfg, cfg.block_specs()[0])
+    return {"flash_attention": cfg.n_enc_layers * enc["flash_attention"],
+            "fused_ffn": 0,
+            "rmsnorm": cfg.n_enc_layers * enc["rmsnorm"] + 1
+            + steps * (3 * cfg.n_layers + 1)}
+
+
+def _transcribe(eng, frames) -> tuple:
+    tokens = eng.transcribe(frames, max_new_tokens=WHISPER_NEW_TOKENS)
+    st = dict(eng.stats[-1])
+    st["decode_tokens_per_s"] = (st["batch"] * st["decode_steps"]
+                                 / st["decode_s"])
+    return tokens, st
+
+
+def phase_serve_whisper(device: dict) -> dict:
+    """whisper-base at full width (:data:`WHISPER_ARCH`) through
+    ``EncDecEngine``: a first pass with every kernel's launch count set to
+    0 before and read after and held to the structure, every B2 call
+    recorded (non-causal, S 1,500, once per encoder layer), a warm pass
+    and a traced one, all three with the same tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm_init, param_values
+    from repro_torch.serve import EncDecEngine, ServeConfig
+
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    values = param_values(lm_init(
+        cfg, torch.Generator(device=CARD).manual_seed(SERVE_SEED), CARD))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = serve.make_frames(cfg, WHISPER_BATCH, SERVE_SEED,
+                               frames=cfg.n_frontend_tokens)
+    eng = EncDecEngine(cfg, values, ServeConfig(
+        max_batch=WHISPER_BATCH, max_len=WHISPER_NEW_TOKENS + 8,
+        cache_dtype=torch.bfloat16))
+    del values
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    calls, inner = [], ops.flash_attention
+
+    def recording(q, k, v, causal=True, window=0, scale=None):
+        calls.append((tuple(q.shape), causal))
+        return inner(q, k, v, causal=causal, window=window, scale=scale)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention = recording
+    try:
+        first, first_st = _transcribe(eng, frames)
+    finally:
+        ops.flash_attention = inner
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    expected = _whisper_launches(cfg, WHISPER_NEW_TOKENS)
+    warm, warm_st = _transcribe(eng, frames)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (traced, traced_st), trace = _traced(lambda: _transcribe(eng, frames))
+    for name, st in (("first", first_st), ("warm", warm_st),
+                     ("traced", traced_st)):
+        emit({"phase": "serve_whisper", "pass": name, "group": st})
+    enc_call = ((WHISPER_BATCH, cfg.n_heads, cfg.n_frontend_tokens,
+                 cfg.head_dim), False)
+    out = {
+        "phase": "serve_whisper", "device": device["nvidia_smi"],
+        "arch": cfg.name, "n_enc_layers": cfg.n_enc_layers,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "frames": cfg.n_frontend_tokens, "batch": WHISPER_BATCH,
+        "new_tokens": WHISPER_NEW_TOKENS, "cache_dtype": "bfloat16",
+        "seed": SERVE_SEED, "init_s": init_s,
+        "launches": launches, "expected_launches": expected,
+        "b2_calls": [[list(shape), causal] for shape, causal in calls],
+        "warm": {k: warm_st[k] for k in ("ttft_s", "decode_s",
+                                         "decode_tokens_per_s")},
+        "peak_memory_gb": peak_gb,
+        "tokens_equal_first_warm_traced": first == warm == traced,
+        **trace,
+    }
+    emit(out)
+    _check_tokens("serve_whisper", dict(enumerate(first)), WHISPER_BATCH,
+                  WHISPER_NEW_TOKENS, cfg.vocab)
+    if launches != expected:
+        raise AssertionError(f"serve_whisper launches {launches} != "
+                             f"structural {expected}")
+    if calls != [enc_call] * cfg.n_enc_layers:
+        raise AssertionError(f"serve_whisper: B2 calls {calls}, not "
+                             f"{cfg.n_enc_layers} x {enc_call}")
+    if not out["tokens_equal_first_warm_traced"]:
+        raise AssertionError("serve_whisper: the passes gave other tokens")
+    return out
+
+
+def phase_whisper_vs_cpu() -> dict:
+    """whisper's fp32 smoke config (weights drawn on the CPU from seed 0,
+    copied to the card), two rows of 16 frames as ``launch.serve`` draws
+    them and 6 tokens: the encoder's output and the uncached forward's
+    logits on the card within :data:`SERVE_VS_CPU_TOL` of the CPU's, its
+    launches those of the structure (B2 at every encoder layer and, over
+    6 fresh tokens, every decoder layer), and ``transcribe``'s 8 tokens
+    equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec_apply, lm_init, param_values
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import EncDecEngine, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(WHISPER_ARCH, smoke=True)
+    values = param_values(lm_init(
+        cfg, torch.Generator().manual_seed(SERVE_SEED), "cpu"))
+    on_card = tree_map(lambda t: t.to(CARD), values)
+    frames = serve.make_frames(cfg, 2, SERVE_SEED)
+    tokens = np.random.default_rng(SERVE_SEED).integers(0, cfg.vocab, (2, 6))
+    f_cpu, t_cpu = torch.from_numpy(frames), torch.from_numpy(tokens)
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    got_logits, _, got_enc, _ = encdec_apply(on_card, cfg, f_cpu.to(CARD),
+                                             t_cpu.to(CARD))
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    want_logits, _, want_enc, _ = encdec_apply(values, cfg, f_cpu, t_cpu)
+    errs = {"enc_out": float((got_enc.cpu() - want_enc).abs().max()),
+            "logits": float((got_logits.cpu() - want_logits).abs().max())}
+    close = all(bool(torch.isfinite(g).all()) and torch.allclose(
+        g.cpu(), w, rtol=SERVE_VS_CPU_TOL, atol=SERVE_VS_CPU_TOL)
+        for g, w in ((got_enc, want_enc), (got_logits, want_logits)))
+    dec = _per_layer(cfg, cfg.block_specs()[0])
+    expected = {"flash_attention": (cfg.n_enc_layers + cfg.n_layers)
+                * dec["flash_attention"], "fused_ffn": 0,
+                "rmsnorm": cfg.n_enc_layers * dec["rmsnorm"] + 1
+                + 3 * cfg.n_layers + 1}
+
+    def transcribe(vals):
+        return EncDecEngine(cfg, vals, ServeConfig(max_len=16)).transcribe(
+            frames, max_new_tokens=8)
+
+    card_tokens, cpu_tokens = transcribe(on_card), transcribe(values)
+    out = {"phase": "whisper_vs_cpu", "compute_dtype": cfg.compute_dtype,
+           "max_abs_err": errs, "tol": SERVE_VS_CPU_TOL, "close": close,
+           "max_abs_logit": float(want_logits.abs().max()),
+           "launches_forward": launches, "expected_launches": expected,
+           "card_tokens": card_tokens, "cpu_tokens": cpu_tokens}
+    emit(out)
+    if not close or card_tokens != cpu_tokens:
+        raise AssertionError("whisper: the card's fp32 forward disagrees "
+                             "with the CPU's")
+    if launches != expected:
+        raise AssertionError(f"whisper: the card's forward made {launches} "
+                             f"launches, not {expected}")
+    return out
+
+
+def _quiet_train(args) -> tuple:
+    """``launch.train.run(args)`` with its log lines captured: its result
+    and those lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train.run(args)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_train(device: dict) -> dict:
+    """tinyllama-1.1b trained whole on the card through
+    ``launch.train.run`` (:data:`TRAIN_ARGS`): first every parameter's
+    gradient at the initial state on step 0's first microbatch (finite and
+    non-zero: a kernel whose output had no ``grad_fn`` would leave the
+    leaves behind it at zero), with that microbatch's launches held to the
+    structure (the scanned layers twice: remat); the 6-step run with every
+    kernel's launches held to 6 steps x 2 microbatches of that; one more
+    step traced; then the run with a checkpoint every 3 steps and a
+    failure at step 4, whose replayed steps must give the uninterrupted
+    run's losses bit for bit, and whose final checkpoint must load back
+    equal to the state it saved."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import keypath_items, load_checkpoint
+    from repro_torch.checkpoint.io import to_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import train
+    from repro_torch.models import lm_init, param_values
+    from repro_torch.train import AdamWConfig, loss_and_grads, \
+        make_train_step
+
+    args = train.parser().parse_args(TRAIN_ARGS)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    counters = _lm_counters()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.batch, seed=args.seed))
+    per_mb = _per_forward(cfg, scanned_times=2)
+
+    # every parameter's gradient, on the first microbatch of step 0
+    values = param_values(lm_init(
+        cfg, torch.Generator(device=CARD).manual_seed(args.seed), CARD))
+    mb = {k: v[:args.batch // args.microbatches]
+          for k, v in to_device(data.batch_at(0), CARD).items()}
+    for mod in counters.values():
+        mod.launches = 0
+    _, _, grads = loss_and_grads(cfg, values, mb)
+    torch.cuda.synchronize()
+    mb_launches = {lib: mod.launches for lib, mod in counters.items()}
+    grad_check = {name: (bool(torch.isfinite(g).all()),
+                         float(g.float().norm()))
+                  for name, g in keypath_items(grads)}
+    missing = [n for n, (finite, norm) in grad_check.items()
+               if not finite or norm == 0.0]
+    del values, grads, mb
+    torch.cuda.empty_cache()
+
+    # the uninterrupted run
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain, plain_log = _quiet_train(args)
+    plain_wall = time.perf_counter() - t0
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    expected = {lib: n * args.microbatches * args.steps
+                for lib, n in per_mb.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm_s = plain["step_s"][2:]
+    step_s = sum(warm_s) / len(warm_s)
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                          total_steps=args.steps, state_dtype=cfg.opt_dtype)
+    step_fn = make_train_step(cfg, opt_cfg, args.microbatches)
+    state = plain.pop("state")
+    extra = to_device(data.batch_at(args.steps), CARD)
+
+    def one_step():
+        out = step_fn(state["params"], state["opt"], extra)
+        torch.cuda.synchronize()
+        return float(out[2]["loss"])
+
+    _, trace = _traced(one_step)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # the run with a checkpoint and a failure at step 4
+    ckpt = WORK_DIR / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    disk_free_gb = shutil.disk_usage(WORK_DIR).free / 1e9
+    t0 = time.perf_counter()
+    failed, failed_log = _quiet_train(train.parser().parse_args(
+        TRAIN_ARGS + ("--ckpt-dir", str(ckpt)) + TRAIN_FAIL_ARGS))
+    failed_wall = time.perf_counter() - t0
+    n_replay = args.steps - 3  # restored from the save at step 3
+    replayed = failed["losses"][-n_replay:]
+    replay_equal = replayed == plain["losses"][3:] and \
+        failed["losses"][:4] == plain["losses"][:4]
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+    t0 = time.perf_counter()
+    restored, meta = load_checkpoint(str(ckpt), template=failed["state"])
+    load_s = time.perf_counter() - t0
+    differ = [name for (name, got), (_, want) in zip(
+        keypath_items(restored), keypath_items(failed["state"]))
+        if not np.array_equal(got, to_numpy(want))]
+    n_leaves = len(keypath_items(restored))
+    del restored, failed["state"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    tokens = args.batch * args.seq
+    out = {
+        "phase": "train", "device": device["nvidia_smi"], "arch": cfg.name,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": sum(int(np.prod(leaf["shape"])) for name, leaf in
+                      meta["leaves"].items() if name.startswith("['params']")),
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "opt_dtype": cfg.opt_dtype, "remat": cfg.remat,
+        "args": list(TRAIN_ARGS), "fail_args": list(TRAIN_FAIL_ARGS),
+        "grad_leaves": len(grad_check), "grads_missing": missing,
+        "grad_norms": {n: v[1] for n, v in grad_check.items()},
+        "microbatch_launches": mb_launches, "expected_microbatch": per_mb,
+        "launches": launches, "expected_launches": expected,
+        "losses": plain["losses"], "wall_s": plain_wall,
+        "step_s": plain["step_s"], "warm_step_s": step_s,
+        "tokens_per_s": tokens / step_s, "peak_memory_gb": peak_gb,
+        "traced_step": trace,
+        "failed_run": {"losses": failed["losses"], "wall_s": failed_wall,
+                       "log": [line for line in failed_log
+                               if "fault" in line or "resumed" in line]},
+        "replay_bitwise_equal": replay_equal,
+        "checkpoint": {"step": meta["step"], "leaves": n_leaves,
+                       "bytes": ckpt_bytes, "load_s": load_s,
+                       "disk_free_gb_before": disk_free_gb,
+                       "leaves_differing": differ},
+    }
+    emit(out)
+    if missing:
+        raise AssertionError(f"train: no finite non-zero gradient for "
+                             f"{missing}")
+    if mb_launches != per_mb or launches != expected:
+        raise AssertionError(f"train launches {mb_launches} / {launches} "
+                             f"!= structural {per_mb} / {expected}")
+    if not replay_equal:
+        raise AssertionError("train: the restarted run's losses differ from "
+                             "the uninterrupted run's")
+    if differ or meta["step"] != args.steps:
+        raise AssertionError(f"train: the checkpoint restored {differ} "
+                             f"otherwise")
+    if not all(np.isfinite(loss) for _, loss in plain["losses"]):
+        raise AssertionError("train: a loss is not finite")
+    return out
+
+
+def _train_vs_cpu_case(arch: str) -> dict:
+    """One step's loss and gradients of ``arch``'s fp32 smoke config
+    (weights drawn on the CPU from seed 0, copied to the card; step 0 of
+    the synthetic stream at 4 x 64) on the card against the CPU, the
+    routing of every MoE call compared first, the card's launches those of
+    one microbatch under remat."""
+    import torch
+
+    from repro_torch.checkpoint import keypath_items
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import lm_init, param_values
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    values = param_values(lm_init(
+        cfg, torch.Generator().manual_seed(SERVE_SEED), "cpu"))
+    on_card = tree_map(lambda t: t.to(CARD), values)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4, seed=0)).batch_at(0)
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    with _RouterChoices() as card:
+        loss_card, _, g_card = loss_and_grads(cfg, on_card,
+                                              to_device(batch, CARD))
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    with _RouterChoices() as cpu:
+        loss_cpu, _, g_cpu = loss_and_grads(cfg, values,
+                                            to_device(batch, "cpu"))
+    rerouted = sum(int((ce != we).any(-1).sum())
+                   for (ce, _), (we, _) in zip(card.calls, cpu.calls))
+    rel = {}
+    for (name, gc), (_, gp) in zip(keypath_items(g_card),
+                                   keypath_items(g_cpu)):
+        rel[name] = float((gc.cpu() - gp).norm()
+                          / gp.norm().clamp_min(1e-30))
+    loss_err = abs(float(loss_card) - float(loss_cpu))
+    out = {"phase": "train_vs_cpu", "arch": arch,
+           "layers": [f"{s.mixer}+{s.ffn}" for s in cfg.block_specs()],
+           "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+           "loss_abs_err": loss_err, "loss_tol": TRAIN_VS_CPU_LOSS_TOL,
+           "grad_rel_err_max": max(rel.values()),
+           "grad_rel_err_worst": max(rel, key=rel.get),
+           "grad_tol": TRAIN_VS_CPU_GRAD_TOL, "grad_leaves": len(rel),
+           "moe_calls": len(card.calls), "rerouted": rerouted,
+           "min_gate_margin": min((float(m.min()) for _, m in cpu.calls),
+                                  default=None),
+           "launches": launches,
+           "expected_launches": _per_forward(cfg, scanned_times=2)}
+    emit(out)
+    if rerouted or len(card.calls) != len(cpu.calls):
+        raise AssertionError(f"{arch}: the card routed {rerouted} token "
+                             f"choices otherwise than the CPU")
+    if loss_err > TRAIN_VS_CPU_LOSS_TOL * max(1.0, abs(float(loss_cpu))) \
+            or out["grad_rel_err_max"] > TRAIN_VS_CPU_GRAD_TOL:
+        raise AssertionError(f"{arch}: the card's train step disagrees with "
+                             f"the CPU's")
+    if launches != out["expected_launches"]:
+        raise AssertionError(f"{arch}: the card's step made {launches} "
+                             f"launches, not {out['expected_launches']}")
+    return out
+
+
+def phase_train_vs_cpu() -> dict:
+    """:func:`_train_vs_cpu_case` for each of :data:`TRAIN_VS_CPU_ARCHS`."""
+    return {"cases": [_train_vs_cpu_case(a) for a in TRAIN_VS_CPU_ARCHS]}
+
+
 # -- LM kernels ---------------------------------------------------------------
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -1517,6 +1992,83 @@ def _lm_calls():
                    lambda a=args, kw=kw: fa.attention_plain(*a, **kw))
 
 
+def _backward_inputs(lib, shape, dtype, seed):
+    """The inputs of one :data:`BACKWARD_CASES` case as leaves that require
+    grad (B2's q, k, v as ``[B, H, S, d]`` views of ``[B, S, H, d]``, as
+    the model hands them over), the Function's call through ``ops``, the
+    plain version, and the call's keywords."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    if lib == "flash_attention":
+        b, h, hkv, s, d, causal = shape
+        ins = _attn_inputs(b, h, hkv, s, d, dtype, seed)
+        kw = {"causal": causal}
+        fn, plain = ops.attention, fa.attention_plain
+    elif lib == "fused_ffn":
+        ins = _ffn_inputs(*shape, dtype, seed)
+        kw, fn, plain = {}, ops.swiglu, ff.swiglu_plain
+    else:
+        ins = _rms_inputs(*shape, dtype, seed)
+        kw, fn, plain = {}, ops.rmsnorm, rn.rmsnorm_plain
+    return [t.detach().requires_grad_() for t in ins], fn, plain, kw
+
+
+# the gradients of each Function that sum over the rows of its input (a
+# weight's or a scale's): by their index among the Function's inputs
+ROW_SUMS = {"fused_ffn": (1, 2, 3), "rmsnorm": (1,), "flash_attention": ()}
+
+
+def _backward_vs_plain(errs: dict, failed: list) -> None:
+    """Each kernel's autograd Function on the card: its output is the
+    kernel's (a ``grad_fn`` of the Function) and its backward formulas'
+    gradients against autograd through the plain version on the same
+    inputs and output gradient, within :data:`LM_TOL`, at
+    :data:`BACKWARD_CASES`: elementwise (rtol = atol = TOL), or, for a
+    gradient that sums over the M rows of the input (:data:`ROW_SUMS`),
+    normwise (the error's L2 norm over the gradient's): two
+    implementations of a 2,048-row sum over bf16-rounded terms round
+    apart at a few elements of small magnitude (as the plain version's
+    own gradient does against a float64 truth).  Errors go to ``errs``
+    under ``(lib, "backward_<dtype>")``."""
+    import torch
+
+    for i, (lib, shape, tname) in enumerate(BACKWARD_CASES):
+        dtype = getattr(torch, tname)
+        ins, fn, plain, kw = _backward_inputs(lib, shape, dtype, 300 + 5 * i)
+        out = fn(*ins, **kw)
+        through = type(out.grad_fn).__name__
+        dout = _randn(out.shape, dtype, 400 + i)
+        got = torch.autograd.grad(out, ins, dout)
+        want = torch.autograd.grad(plain(*ins, **kw), ins, dout)
+        torch.cuda.synchronize()
+        tol = LM_TOL[tname]
+        grads, ok = [], "Backward" in through
+        for j, (g, w) in enumerate(zip(got, want)):
+            g, w = g.float(), w.float()
+            outside = int((~torch.isclose(g, w, rtol=tol, atol=tol)).sum())
+            norm_err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+            row_sum = j in ROW_SUMS[lib]
+            ok = ok and bool(torch.isfinite(g).all()) and (
+                outside == 0 or (row_sum and norm_err <= tol))
+            grads.append({"input": j, "max_abs_err": float(
+                (g - w).abs().max()), "max_abs": float(w.abs().max()),
+                "outside_elementwise_tol": outside, "elements": g.numel(),
+                "norm_rel_err": norm_err, "sums_rows": row_sum})
+        err = max(r["max_abs_err"] for r in grads)
+        key = (lib, f"backward_{tname}")
+        errs[key] = max(errs.get(key, 0.0), err)
+        emit({"phase": "lm_kernels_vs_plain", "kernel": lib,
+              "backward": True, "shape": list(shape), "dtype": tname,
+              "grad_fn": through, "tol": tol, "max_abs_err": err,
+              "grads": grads, "ok": ok})
+        if not ok:
+            failed.append((lib, "backward", shape, tname))
+        del ins, out, got, want
+
+
 def phase_lm_kernels_vs_plain() -> dict:
     """Each LM kernel against its plain torch version on the same card
     tensors: at the serving path's shapes (tinyllama's, jamba's,
@@ -1525,7 +2077,9 @@ def phase_lm_kernels_vs_plain() -> dict:
     smoke shape in fp32 only) and at ragged ones, in bf16
     (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
     ``tests/test_kernels.py``.  Returns the largest absolute error of each
-    kernel, by dtype."""
+    kernel, by dtype.  Then each kernel's autograd Function: its backward
+    against autograd through the plain version (:func:`_backward_vs_plain`;
+    errors under ``(lib, "backward_<dtype>")``)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1535,7 +2089,7 @@ def phase_lm_kernels_vs_plain() -> dict:
         "cudnn": torch.backends.cudnn.allow_tf32}})
     errs: dict = {}
     failed = []
-    sweep: dict = {}  # (dtype, d) -> [cases, max error] of ATTN_SWEEP
+    sweep: dict = {}  # (dtype, d, causal) -> [cases, max error]
     for name, case, dtype, kernel, plain in _lm_calls():
         got = kernel()
         want = plain()
@@ -1549,7 +2103,8 @@ def phase_lm_kernels_vs_plain() -> dict:
         key = (name, tname)
         errs[key] = max(errs.get(key, 0.0), err)
         if case.pop("sweep", False) and ok:
-            agg = sweep.setdefault((tname, case["d"]), [0, 0.0])
+            agg = sweep.setdefault((tname, case["d"], case["causal"]),
+                                   [0, 0.0])
             agg[0] += 1
             agg[1] = max(agg[1], err)
         else:
@@ -1558,11 +2113,13 @@ def phase_lm_kernels_vs_plain() -> dict:
                   "finite": finite, "ok": ok})
         if not ok:
             failed.append((name, case, tname))
-    for (tname, d), (n, err) in sorted(sweep.items()):
+    for (tname, d, causal), (n, err) in sorted(sweep.items()):
         emit({"phase": "lm_kernels_vs_plain", "kernel": "flash_attention",
-              "sweep": {"s": ATTN_SWEEP_S, "window": [0, 40],
-                        "hkv": [1, 2, 16], "h": 16}, "d": d, "dtype": tname,
+              "sweep": {"s": ATTN_SWEEP_S, "window": [0, 40] if causal
+                        else [0], "hkv": [1, 2, 16] if causal else [1, 16],
+                        "h": 16}, "d": d, "causal": causal, "dtype": tname,
               "cases_ok": n, "max_abs_err": err})
+    _backward_vs_plain(errs, failed)
     if failed:
         raise AssertionError(f"LM kernels disagree with their plain "
                              f"versions: {failed}")
@@ -1779,14 +2336,19 @@ def phase_lm_timing() -> dict:
     """B2, B3 and B4 at the serving path's shapes in bf16: prefill of 8 x 512
     and 4 x 200 tokens and decode at batch 8 and 4, at tinyllama-1.1b's
     width; B3 also in fp32 (the route ``launch.serve`` takes at its default
-    fp32 cache).  The library calls (``F.scaled_dot_product_attention`` with
-    GQA, ``F.rms_norm``) and B3's composite (three bf16 ``torch.matmul``s
-    and ``F.silu(g) * u``) are timed here only; the port never calls them.
-    Then the same at jamba-v0.1-52b's shapes (d 4096, d_ff 14,336, Hkv 8,
-    d 128), and at deepseek-v2-236b's and xlstm-350m's
-    (:func:`_mla_timing_rows`).  Returns the 8 x 512 prefill row of each
-    kernel, with B3's and B4's decode rows, and each kernel's jamba rows
-    (``<lib>_jamba``) and deepseek / xlstm rows (``<lib>_mla_xlstm``)."""
+    fp32 cache), beside its composite in fp32.  The library calls
+    (``F.scaled_dot_product_attention`` with GQA, ``F.rms_norm``) and B3's
+    composite (three ``torch.matmul``s and ``F.silu(g) * u``) are timed
+    here only; the port never calls them.  Then the same at
+    jamba-v0.1-52b's shapes (d 4096, d_ff 14,336, Hkv 8, d 128), at
+    deepseek-v2-236b's and xlstm-350m's (:func:`_mla_timing_rows`), B2 at
+    whisper-base's encoder shape (non-causal, S 1,500) and the backward
+    formulas at the train step's shapes (:func:`_backward_timing_rows`).
+    Returns the 8 x 512 prefill row of each kernel, with B3's and B4's
+    decode rows, each kernel's jamba rows (``<lib>_jamba``), deepseek /
+    xlstm rows (``<lib>_mla_xlstm``), B3's fp32 rows (``fused_ffn_fp32``),
+    B2's whisper row (``flash_attention_whisper``) and the backward rows
+    (``backward``, by kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -1820,12 +2382,14 @@ def phase_lm_timing() -> dict:
                 ff.fused_swiglu, ff.swiglu_plain, None,
                 nbytes=(2 * m * d + 3 * d * f) * dtype.itemsize,
                 ops=6 * m * d * f, reps=(20 if m > 8 else 200)
-                if dtype == bf16 else (3 if m > 8 else 20),
-                dtype=tname, composite=composite if dtype == bf16 else None)
+                if dtype == bf16 else (5 if m > 8 else 20),
+                dtype=tname, composite=composite)
             if dtype == bf16:
                 rows.setdefault("fused_ffn", row)
                 if m == 8:
                     rows["fused_ffn_decode"] = row
+            else:
+                rows.setdefault("fused_ffn_fp32", []).append(row)
     for b, s_len in ((8, 512), (4, 200)):
         h, hkv, hd = 32, 4, 64
         live_pairs = b * h * s_len * (s_len + 1) // 2  # causal
@@ -1871,15 +2435,123 @@ def phase_lm_timing() -> dict:
         ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100)]
     for lib, new in _mla_timing_rows().items():
         rows[f"{lib}_mla_xlstm"] = new
+
+    # whisper-base's encoder attention (serve_whisper): B 8, H = Hkv 8,
+    # S 1,500, d 64, non-causal
+    b, h, s_len, hd = WHISPER_BATCH, 8, 1500, 64
+    rows["flash_attention_whisper"] = [_timing_row(
+        "flash_attention",
+        {"b": b, "h": h, "hkv": h, "s": s_len, "d": hd, "causal": False},
+        lambda i: _attn_inputs(b, h, h, s_len, hd, bf16, 71 + 3 * i),
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=False),
+        lambda q, k, v: fa.attention_plain(q, k, v, causal=False),
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
+        nbytes=4 * b * h * s_len * hd * 2, ops=4 * hd * b * h * s_len ** 2,
+        reps=50)]
+    rows["backward"] = _backward_timing_rows()
+    return rows
+
+
+def _backward_row(lib, shape, make, fn, plain, library, composite, nbytes,
+                  ops, reps) -> dict:
+    """Times of one backward at one shape, between CUDA events: the
+    autograd Function's formulas (``ms``), autograd through the plain
+    version (``plain_ms``), through the library call (``library_ms``) and
+    through a composite of library calls (``composite_ms``), each over a
+    graph built once (``retain_graph``) with the same output gradient; the
+    device time of the formulas from the profiler; the bound from the
+    bytes the backward must move and its operations at the bf16 rate."""
+    import torch
+
+    ins = [t.detach().requires_grad_() for t in make()]
+    dout = None
+
+    def timer(call):
+        nonlocal dout
+        if call is None:
+            return None
+        out = call(*ins)
+        if dout is None:
+            dout = _randn(out.shape, out.dtype, 77)
+
+        def back():
+            return torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+        return back
+
+    kernel = timer(fn)
+    rest = {name: timer(call) for name, call in (
+        ("plain", plain), ("library", library), ("composite", composite))}
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    row = {"phase": "lm_timing", "kernel": lib, "backward": True,
+           "shape": list(shape), "dtype": "bfloat16",
+           "ms": _events_ms(kernel, reps),
+           "device_ms": _profiled_ms(kernel, reps),
+           **{f"{name}_ms": _events_ms(back, max(reps // 2, 3)) if back
+              else None for name, back in rest.items()},
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops}
+    emit(row)
+    return row
+
+
+def _backward_timing_rows() -> dict:
+    """The backward formulas at the train step's shapes (tinyllama-1.1b, a
+    microbatch of 4 x 512, bf16), each beside torch autograd through the
+    plain version and through the library call or composite that computes
+    the same function: B2 (GQA 32 / 4 heads, causal; library
+    ``F.scaled_dot_product_attention``), B3 (d 2048, f 5632; composite:
+    three bf16 ``torch.matmul``s and ``F.silu(g) * u``), B4 (d 2048;
+    library ``F.rms_norm``).  Operations counted as the formulas do them:
+    B2's five products over the live (causal) pairs, B3's eight (g and u
+    recomputed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    bf16, rows = torch.bfloat16, {}
+    b, h, hkv, s_len, hd = 4, 32, 4, 512, 64
+    pairs = b * h * s_len * (s_len + 1) // 2
+    rows["flash_attention"] = _backward_row(
+        "flash_attention", (b, h, hkv, s_len, hd, True),
+        lambda: _attn_inputs(b, h, hkv, s_len, hd, bf16, 81),
+        lambda q, k, v: ops.attention(q, k, v, causal=True),
+        lambda q, k, v: fa.attention_plain(q, k, v, causal=True),
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), None,
+        nbytes=(4 * b * h + 4 * b * hkv) * s_len * hd * 2,
+        ops=10 * hd * pairs, reps=10)
+    m, d, f = 2048, 2048, 5632
+
+    def composite(x, wg, wi, wo):
+        return (F.silu(x @ wg) * (x @ wi)) @ wo
+
+    rows["fused_ffn"] = _backward_row(
+        "fused_ffn", (m, d, f), lambda: _ffn_inputs(m, d, f, bf16, 85),
+        ops.swiglu, ff.swiglu_plain, None, composite,
+        nbytes=(3 * m * d + m * f + 6 * d * f) * 2, ops=16 * m * d * f,
+        reps=10)
+    rows["rmsnorm"] = _backward_row(
+        "rmsnorm", (m, d), lambda: _rms_inputs(m, d, bf16, 89),
+        ops.rmsnorm, rn.rmsnorm_plain,
+        lambda x, sc: F.rms_norm(x, (d,), sc, 1e-5), None,
+        nbytes=(3 * m * d + 2 * d) * 2, ops=0, reps=50)
     return rows
 
 
 PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
           "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
+          "serve_whisper", "whisper_vs_cpu", "train", "train_vs_cpu",
           "lm_timing")
-# the phases that serve at full width, whose launches the kernels line sums
-SERVE_PHASES = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm")
+# the phases that run a model at full width, whose launches the kernels
+# line sums
+MAIN_PATHS = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm",
+              "serve_whisper", "train")
 
 
 def main(argv=None) -> int:
@@ -1947,6 +2619,14 @@ def main(argv=None) -> int:
         served["serve_xlstm"] = phase_serve_xlstm(device)
     if run("mla_xlstm_vs_cpu"):
         phase_mla_xlstm_vs_cpu()
+    if run("serve_whisper"):
+        served["serve_whisper"] = phase_serve_whisper(device)
+    if run("whisper_vs_cpu"):
+        phase_whisper_vs_cpu()
+    if run("train"):
+        served["train"] = phase_train(device)
+    if run("train_vs_cpu"):
+        phase_train_vs_cpu()
     lm_rows = phase_lm_timing() if run("lm_timing") else None
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)
@@ -1980,11 +2660,14 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/csrc/{lib}.cu",
             "replaces": replaces,
             "launches": sum(served[p]["launches"][lib]
-                            for p in SERVE_PHASES),
+                            for p in MAIN_PATHS),
             "launches_by_path": {p: served[p]["launches"][lib]
-                                 for p in SERVE_PHASES},
+                                 for p in MAIN_PATHS},
             "max_abs_err": lm_errs[(lib, "bfloat16")],
             "max_abs_err_fp32": lm_errs[(lib, "float32")],
+            "backward_max_abs_err": {
+                t: lm_errs[(lib, f"backward_{t}")]
+                for t in ("bfloat16", "float32")},
             "shape": {k: v for k, v in row.items()
                       if k in ("m", "d", "f", "b", "h", "hkv", "s")},
             "ms": row["ms"],
@@ -2012,6 +2695,17 @@ def main(argv=None) -> int:
             "sdpa_backends", "sdpa_default_equals", "composite_ms",
             "l2_cold") if k in r}
             for r in lm_rows[f"{lib}_mla_xlstm"]]
+        bwd = lm_rows["backward"][lib]
+        kernels[-1]["backward"] = {k: bwd[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "composite_ms", "bound_ms", "bound_by")}
+        for extra in ("whisper", "fp32"):
+            if f"{lib}_{extra}" in lm_rows:
+                kernels[-1][extra] = [{k: r[k] for k in (
+                    "m", "d", "f", "b", "h", "hkv", "s", "causal", "ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "composite_ms",
+                    "l2_cold") if k in r} for r in lm_rows[f"{lib}_{extra}"]]
         if f"{lib}_decode" in lm_rows:
             dec = lm_rows[f"{lib}_decode"]
             kernels[-1]["decode"] = {k: dec[k] for k in (

@@ -82,3 +82,17 @@ def lm_params_from_reference(arrays: Mapping[str, Any], device="cpu",
         return t.to(device)
 
     return convert(tree)
+
+
+def adamw_state_from_reference(step, mu: Mapping[str, Any],
+                               nu: Mapping[str, Any], device="cpu"):
+    """The port's ``AdamWState`` from the reference's ``AdamWState``
+    fields as NumPy arrays: ``step`` (int32 scalar) and the moment trees
+    ``mu`` and ``nu`` (nested, or flat ``keystr`` paths as
+    :func:`lm_params_from_reference` takes them)."""
+    from repro_torch.train import AdamWState
+
+    return AdamWState(
+        step=torch.tensor(np.asarray(step), dtype=torch.int32, device=device),
+        mu=lm_params_from_reference(mu, device),
+        nu=lm_params_from_reference(nu, device))

@@ -176,14 +176,23 @@ def load(name: str) -> ctypes.CDLL:
 def check_cuda_tensors(name: str, *tensors, contiguous: bool = True) -> int:
     """Raise ``ValueError`` unless every tensor lies on one CUDA device
     (and, with ``contiguous``, is contiguous): the kernels take nothing
-    else.  Returns that device's index."""
+    else.  Raise ``RuntimeError`` if grad is enabled and one requires
+    grad: the kernel's output would have no ``grad_fn`` and silently cut
+    the graph (:mod:`repro_torch.kernels.ops` routes such calls through
+    the kernels' autograd Functions).  Returns that device's index."""
     index = tensors[0].get_device()
+    grad = torch.is_grad_enabled()
     for t in tensors:
         if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name} runs on tensors of one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} expects contiguous tensors")
+        if grad and t.requires_grad:
+            raise RuntimeError(
+                f"{name} was called on a tensor that requires grad with "
+                f"grad enabled: its output would carry no grad_fn; call "
+                f"repro_torch.kernels.ops (autograd) or use torch.no_grad()")
     return index
 
 

@@ -30,13 +30,19 @@ def swiglu_hidden_plain(x: torch.Tensor, wg: torch.Tensor,
     return h.to(x.dtype)
 
 
+def swiglu_plain_with_hidden(x: torch.Tensor, wg: torch.Tensor,
+                             wi: torch.Tensor, wo: torch.Tensor):
+    """:func:`swiglu_plain` and its hidden activation."""
+    h = swiglu_hidden_plain(x, wg, wi)
+    return (h.float() @ wo.float()).to(x.dtype), h
+
+
 def swiglu_plain(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                  wo: torch.Tensor) -> torch.Tensor:
     """``(silu(x @ wg) * (x @ wi)) @ wo`` with the hidden activation held
     in ``x``'s dtype, as the kernels hold it, and fp32 products, cast back
     to ``x``'s dtype; on any device."""
-    h = swiglu_hidden_plain(x, wg, wi)
-    return (h.float() @ wo.float()).to(x.dtype)
+    return swiglu_plain_with_hidden(x, wg, wi, wo)[0]
 
 
 def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
@@ -46,6 +52,13 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     device; any ``M``, ``d`` and ``f``.  Allocates the hidden activation
     ``[M, f]`` in that dtype.  Raises ``ValueError`` on other tensors and
     ``RuntimeError`` if the kernels cannot be built or launched."""
+    return fused_swiglu_with_hidden(x, wg, wi, wo)[0]
+
+
+def fused_swiglu_with_hidden(x: torch.Tensor, wg: torch.Tensor,
+                             wi: torch.Tensor, wo: torch.Tensor):
+    """:func:`fused_swiglu` and the hidden activation ``[M, f]`` its first
+    kernel wrote (the backward's ``dWo = Hᵀ dY`` reads it)."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"fused_swiglu expects x [M, d], got {list(x.shape)}")
@@ -60,11 +73,11 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     if not wg.dtype == wi.dtype == wo.dtype == x.dtype:
         raise ValueError("fused_swiglu expects x and the weights in one dtype")
     out = torch.empty_like(x)
-    if m == 0:
-        return out
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out, h
     _build.launch(_build.load("fused_ffn").fused_ffn_launch, index,
                   x.data_ptr(), wg.data_ptr(), wi.data_ptr(), wo.data_ptr(),
                   h.data_ptr(), out.data_ptr(), m, d, f, code)
     launches += 1
-    return out
+    return out, h

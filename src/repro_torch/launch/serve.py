@@ -7,13 +7,16 @@
 Same flags as the JAX package's ``repro.launch.serve``, plus ``--device``
 (default ``cuda``; without a GPU it prints ``error: ...`` and exits 2, it
 never carries on on the CPU).  Weights are random, drawn from ``--seed`` on
-the device.  Every decoder-only arch is served; the encoder-decoder
-whisper-base exits 2 naming its ROADMAP item.  jamba-v0.1-52b at full depth
-(52 B parameters, ~104 GB in bf16) and deepseek-v2-236b (236 B, ~471 GB) do
-not fit one 80 GB card; their smoke configs do.
+the device.  Every arch is served: the decoder-only ones through
+``ServeEngine``, whisper-base through ``EncDecEngine`` on ``--requests``
+rows of 16 frames drawn from ``--seed`` with NumPy, as the reference
+draws them.  jamba-v0.1-52b at full depth (52 B parameters, ~104 GB in
+bf16) and deepseek-v2-236b (236 B, ~471 GB) do not fit one 80 GB card;
+their smoke configs do.
 Besides what ``repro.launch.serve`` prints, it prints one
-``group: {json}`` line per batch: batch, prompt length, time to the first
-tokens on the host and decode tokens/s.
+``group: {json}`` line per batch (per ``transcribe`` for whisper): batch,
+prompt length or frames, time to the first tokens on the host and decode
+tokens/s.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import lm_init, param_values
-from repro_torch.models.lm import check_decoder
-from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve import EncDecEngine, Request, ServeConfig, ServeEngine
+
+#: frames a whisper request carries (the reference's ``launch.serve``)
+WHISPER_FRAMES = 16
 
 
 def make_requests(cfg, requests: int, prompt_len: int, new_tokens: int,
@@ -52,7 +57,6 @@ def make_run(arch: str, smoke: bool, requests: int, prompt_len: int,
     serving config (the reference's defaults but for the batch and the
     cache length)."""
     cfg = get_config(arch, smoke=smoke)
-    check_decoder(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     values = param_values(lm_init(cfg, gen, device))
@@ -62,13 +66,24 @@ def make_run(arch: str, smoke: bool, requests: int, prompt_len: int,
     return cfg, values, reqs, scfg
 
 
-def group_stats(eng: ServeEngine) -> List[dict]:
+def make_frames(cfg, requests: int, seed: int,
+                frames: int = WHISPER_FRAMES) -> np.ndarray:
+    """Whisper's ``[requests, frames, d]`` fp32 frame embeddings: the
+    first draw of ``numpy.random.default_rng(seed)``, as the reference's
+    ``launch.serve`` draws them."""
+    return np.random.default_rng(seed).normal(
+        size=(requests, frames, cfg.d_model)).astype(np.float32)
+
+
+def group_stats(eng) -> List[dict]:
     """The engine's per-group stats with the prefill tokens and the decode
     rate, as the ``group:`` lines print them."""
     out = []
     for st in eng.stats:
         steps = st["decode_steps"]
-        out.append({**st, "prefill_tokens": st["batch"] * st["prompt_len"],
+        extra = ({"prefill_tokens": st["batch"] * st["prompt_len"]}
+                 if "prompt_len" in st else {})
+        out.append({**st, **extra,
                     "decode_tokens_per_s": (st["batch"] * steps
                                             / st["decode_s"]
                                             if steps else None)})
@@ -93,21 +108,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("error: --device cuda needs a CUDA GPU and none is available; "
               "pass --device cpu to run on the CPU", file=sys.stderr)
         return 2
-    try:
-        cfg, values, reqs, scfg = make_run(
-            args.arch, args.smoke, args.requests, args.prompt_len,
-            args.new_tokens, args.max_batch, args.seed, args.device)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    eng = ServeEngine(cfg, values, scfg)
-    del values  # the engine holds its compute-dtype copy
-
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    dt = time.perf_counter() - t0
-    for rid in sorted(outs):
-        print(f"req {rid}: {outs[rid]}")
+    cfg, values, reqs, scfg = make_run(
+        args.arch, args.smoke, args.requests, args.prompt_len,
+        args.new_tokens, args.max_batch, args.seed, args.device)
+    if cfg.is_encdec:
+        eng = EncDecEngine(cfg, values, scfg)
+        del values  # the engine holds its compute-dtype copy
+        frames = make_frames(cfg, args.requests, args.seed)
+        t0 = time.perf_counter()
+        outs = eng.transcribe(frames, max_new_tokens=args.new_tokens)
+        dt = time.perf_counter() - t0
+        for i, o in enumerate(outs):
+            print(f"req {i}: {o}")
+    else:
+        eng = ServeEngine(cfg, values, scfg)
+        del values  # the engine holds its compute-dtype copy
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        dt = time.perf_counter() - t0
+        for rid in sorted(outs):
+            print(f"req {rid}: {outs[rid]}")
     for st in group_stats(eng):
         print("group: " + json.dumps(st))
     total = args.requests * args.new_tokens

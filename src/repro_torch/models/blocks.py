@@ -82,10 +82,12 @@ def block_apply(
     cache: Optional[Dict] = None,
     kv_source: Optional[torch.Tensor] = None,
     fresh: bool = False,
+    bidirectional: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
     """Returns (x, cache, aux_loss): the cache or recurrent state written
     in place; the MoE's aux loss, ``None`` for a block without one.
-    ``fresh`` as in :func:`repro_torch.models.layers.attention_apply`."""
+    ``fresh`` and ``bidirectional`` as in
+    :func:`repro_torch.models.layers.attention_apply`."""
     check_supported(spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if spec.mixer == MAMBA:
@@ -101,7 +103,8 @@ def block_apply(
         window = cfg.sliding_window if spec.mixer == ATTN_LOCAL else 0
         out, new_cache = attention_apply(params["mixer"], cfg, h, positions,
                                          window=window, cache=cache,
-                                         kv_source=kv_source, fresh=fresh)
+                                         kv_source=kv_source, fresh=fresh,
+                                         bidirectional=bidirectional)
     x = x + out
     aux = None
     if spec.ffn != FFN_NONE:

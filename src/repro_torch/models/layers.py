@@ -1,6 +1,7 @@
 """Functional layers of the port's model zoo: the attention, MLA, dense-FFN,
 MoE, Mamba, mLSTM and sLSTM layers of the JAX package's
-``repro.models.layers`` (forward only: sLSTM's custom VJP is training's).
+``repro.models.layers``, with sLSTM's custom VJP (the recurrent weight's
+gradient deferred to one contraction after the reverse scan).
 
 Every ``*_init`` returns a tree of nested dicts whose leaves are
 :class:`Param` (value + logical axes); ``*_apply`` consumes the matching
@@ -12,8 +13,11 @@ RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where its
 contract holds, attention go through :mod:`repro_torch.kernels.ops`: the
 hand-written CUDA kernels on a CUDA tensor, their plain torch versions on a
 CPU tensor (MLA's prefill pads its 192-wide q/k and 128-wide v heads to one
-width the attention kernel is built for).  Which route a call takes depends
-on shapes and flags only, never on the device.
+width the attention kernel is built for), each under autograd through its
+``torch.autograd.Function`` when a train step needs its gradient.  Which
+route a call takes depends on shapes and flags only, never on the device.
+Under autograd the Mamba scan and the sLSTM time loop write no tensor in
+place (the sLSTM loop runs inside its own Function).
 
 Matrix products promote their operands to a common dtype as the JAX
 package's do (a bf16 activation against an fp32 cache gives fp32), so the
@@ -273,12 +277,16 @@ def _write_cache(cache: Dict, k, v, positions):
 def attention_apply(params, cfg: ModelConfig, x, positions,
                     window: int = 0, cache: Optional[Dict] = None,
                     kv_source: Optional[torch.Tensor] = None,
-                    fresh: bool = False):
+                    fresh: bool = False, bidirectional: bool = False):
     """Returns (out, cache).  ``cache``: {"k","v","pos","len"}, written in
     place; ``kv_source``: cross-attention memory.  ``fresh``: the caller
     promises the queries are at positions 0..S-1 on every row and ``cache``
     (if any) is empty, as in the uncached forward with default positions and
-    the serving engine's prefill.
+    the serving engine's prefill.  ``bidirectional``: ``kv_source`` holds
+    one key and value row per query, as whisper's encoder hands its
+    block's input (the reference's full-visibility ``kv_source`` mask with
+    no rotary); without a cache or softcap that is ``ops.attention`` with
+    ``causal=False``.
 
     Self-attention over S > 1 fresh tokens without softcap goes through
     ``ops.attention`` (flash attention, GQA read in place): the queries'
@@ -305,7 +313,14 @@ def attention_apply(params, cfg: ModelConfig, x, positions,
     T = cache["k"].shape[1] if cache is not None else S
     if cache is not None:
         _write_cache(cache, k, v, positions)
-    if (kv_source is None and fresh and S > 1 and not cfg.logit_softcap
+    if (bidirectional and cache is None and Ssrc == S
+            and not cfg.logit_softcap and dv == dh):
+        dt = torch.promote_types(q.dtype, v.dtype)
+        out = ops.attention(q.to(dt).transpose(1, 2),
+                            k.to(dt).transpose(1, 2),
+                            v.to(dt).transpose(1, 2), causal=False)
+        out = out.transpose(1, 2).to(v.dtype)
+    elif (kv_source is None and fresh and S > 1 and not cfg.logit_softcap
             and dv == dh):
         # the reference attends over the cache (same keys, cast to its
         # dtype) when S < T, over the in-flight keys when S >= T
@@ -658,10 +673,18 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     da = (dt[..., None] * A).exp_()                          # [B,S,di,n]
     hs = (dt * uf)[..., None] * Bc[:, :, None, :]            # db, then h
     prev = None if state is None else state["ssm"].float()
-    for t in range(S):
-        if prev is not None:
-            hs[:, t].addcmul_(da[:, t], prev)
-        prev = hs[:, t]
+    if hs.requires_grad:  # under autograd: the same steps, out of place
+        steps = []
+        for t in range(S):
+            prev = hs[:, t] if prev is None else torch.addcmul(
+                hs[:, t], da[:, t], prev)
+            steps.append(prev)
+        hs = torch.stack(steps, dim=1)
+    else:
+        for t in range(S):
+            if prev is not None:
+                hs[:, t].addcmul_(da[:, t], prev)
+            prev = hs[:, t]
     del da
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + uf * params["D"].float()
@@ -856,12 +879,65 @@ def slstm_initial_state(batch: int, heads: int, dh: int, device=None):
             "m": full(-10.0)}
 
 
+def _slstm_loop(wx, rrec, c, n, h, m, keep: bool = False):
+    """The time loop over ``wx`` ``[B,S,H,4dh]`` from state (c, n, h, m):
+    the per-step h's, the final state, and with ``keep`` each step's
+    (c, n, m, h) before it and its ``pre``."""
+    hs, kept = [], []
+    for t in range(wx.shape[1]):
+        pre = wx[:, t] + torch.einsum("bhd,hdk->bhk", h, rrec)
+        if keep:
+            kept.append((c, n, m, h, pre))
+        c, n, m, h = _slstm_cell(c, n, m, pre)
+        hs.append(h)
+    return hs, (c, n, h, m), kept
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The reference's ``_slstm_scan`` custom VJP: the reverse loop only
+    carries the state cotangents and emits each step's ``dpre``; the
+    recurrent weight's gradient is one contraction over (batch, time)
+    afterwards."""
+
+    @staticmethod
+    def forward(ctx, wx, rrec, c0, n0, h0, m0):
+        hs, final, kept = _slstm_loop(wx, rrec, c0, n0, h0, m0, keep=True)
+        ctx.save_for_backward(rrec, *(torch.stack(col) for col in
+                                      zip(*kept)))
+        return (torch.stack(hs), *final)
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        rrec, c_prev, n_prev, m_prev, h_prev, pres = ctx.saved_tensors
+        dpres = [None] * pres.shape[0]
+        for t in reversed(range(pres.shape[0])):
+            with torch.enable_grad():
+                ins = [a[t].detach().requires_grad_()
+                       for a in (c_prev, n_prev, m_prev, pres)]
+                outs = _slstm_cell(*ins)
+                dc, dn, dm, dpre = torch.autograd.grad(
+                    outs, ins, (dc, dn, dm, dh + dhs[t]))
+            dh = torch.einsum("bhk,hdk->bhd", dpre, rrec)
+            dpres[t] = dpre
+        dpres = torch.stack(dpres)
+        drrec = torch.einsum("sbhd,sbhk->hdk", h_prev, dpres)
+        return dpres.transpose(0, 1), drrec, dc, dn, dh, dm
+
+
+def slstm_scan(wx, rrec, c0, n0, h0, m0):
+    """The reference's ``_slstm_scan``: wx ``[B,S,H,4dh]``, rrec
+    ``[H,dh,4dh]``, states ``[B,H,dh]`` -> (hs ``[S,B,H,dh]``, (c, n, h,
+    m)), differentiable through :class:`_SLSTMScan`."""
+    hs, *final = _SLSTMScan.apply(wx, rrec, c0, n0, h0, m0)
+    return hs, tuple(final)
+
+
 def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     """Sequential scalar-memory LSTM with per-head recurrence + GLU out;
     returns (out, state).  ``state`` = {"c","n","h","m"}, each [B,H,dh]
     fp32, written in place when given (a new dict otherwise).  The
     reference's ``lax.scan`` over time is a Python loop, one step a
-    token."""
+    token; under autograd it runs inside :func:`slstm_scan`."""
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
@@ -871,12 +947,13 @@ def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     st = slstm_initial_state(B, H, dh, x.device) if state is None else state
     c, n, h, m = (st[key].float() for key in ("c", "n", "h", "m"))
     rrec = params["rrec"].float()
-    hs = []
-    for t in range(S):
-        pre = wx[:, t] + torch.einsum("bhd,hdk->bhk", h, rrec)
-        c, n, m, h = _slstm_cell(c, n, m, pre)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    if torch.is_grad_enabled() and (wx.requires_grad or rrec.requires_grad):
+        hs, (c, n, h, m) = slstm_scan(wx, rrec, c, n, h, m)
+        y = hs.transpose(0, 1)
+    else:
+        hs, (c, n, h, m), _ = _slstm_loop(wx, rrec, c, n, h, m)
+        y = torch.stack(hs, dim=1)
+    y = y.reshape(B, S, d).to(x.dtype)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
     up = _mm(y, params["up"])
     dff = params["down"].shape[0]
@@ -887,9 +964,3 @@ def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
         state[key].copy_(val)
     return out, state
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a layer kind of the JAX package the port lacks."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")

@@ -1,12 +1,13 @@
 """Serving layer of the port: the LM batch engine and the plan server.
 
-``engine`` serves the decoder-only LMs on torch.  The plan server
+``engine`` serves the decoder-only LMs and whisper's encoder-decoder on
+torch.  The plan server
 (``plans``/``zoo``) is the port's copy of ``repro.serve.plans`` and
 ``repro.serve.zoo``: stdlib HTTP over :mod:`repro_torch.api`, searching
 on the ``torch`` backend on a device the caller names.
 """
 
-from .engine import Request, ServeConfig, ServeEngine
+from .engine import EncDecEngine, Request, ServeConfig, ServeEngine
 from .plans import (
     PlanResponse,
     PlanServer,
@@ -26,6 +27,7 @@ from .zoo import (
 )
 
 __all__ = [
+    "EncDecEngine",
     "PlanResponse",
     "PlanServer",
     "PlanService",

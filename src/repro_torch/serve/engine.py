@@ -1,5 +1,6 @@
 """Batched serving engine: prefill + greedy decode over the port's model
-zoo (the JAX package's ``repro.serve.engine.ServeEngine``).
+zoo (the JAX package's ``repro.serve.engine.ServeEngine``), and whisper's
+``EncDecEngine`` (encode the frames once, decode greedily against them).
 
 Requests are grouped by prompt length (static batching with length
 bucketing); each group is prefilled in one batched forward that also fills
@@ -39,9 +40,9 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.models import init_caches, lm_apply
+from repro_torch.models import encdec_apply, init_caches, lm_apply
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import not_ported, tree_cast
+from repro_torch.models.layers import tree_cast
 from repro_torch.models.lm import torch_dtype
 
 
@@ -61,18 +62,24 @@ class ServeConfig:
     greedy: bool = True
 
 
+def _compute_values(cfg: ModelConfig, values):
+    """The parameters in the compute dtype, cast once; the final and the
+    encoder's norm keep their dtype, as the reference reads them."""
+    cdtype = torch_dtype(cfg.compute_dtype)
+    return {k: (v if k in ("final_norm", "enc_norm")
+                else tree_cast(v, cdtype)) for k, v in values.items()}
+
+
 class ServeEngine:
     """Length-bucketed batch serving for decoder-only archs, on the device
     that holds ``values``."""
 
     def __init__(self, cfg: ModelConfig, values, scfg: ServeConfig):
         if cfg.is_encdec:
-            raise not_ported(f"EncDecEngine ({cfg.name})", "A6")
+            raise ValueError("use EncDecEngine for whisper")
         self.cfg = cfg
         self.scfg = scfg
-        cdtype = torch_dtype(cfg.compute_dtype)
-        self.values = {k: (v if k == "final_norm" else tree_cast(v, cdtype))
-                       for k, v in values.items()}
+        self.values = _compute_values(cfg, values)
         self.device = values["embed"].device
         self.cache_dtype = scfg.cache_dtype
         self.stats: List[Dict[str, Any]] = []
@@ -124,3 +131,55 @@ class ServeEngine:
             for i in range(0, len(reqs), self.scfg.max_batch):
                 self._generate_group(reqs[i: i + self.scfg.max_batch])
         return {r.rid: r.generated for r in requests}
+
+
+class EncDecEngine:
+    """Whisper-style serving on the device that holds ``values``: the
+    encoder runs once on the frames, then each step decodes one token per
+    row greedily against its output (the JAX package's ``EncDecEngine``:
+    ``bos`` first, ``max_new_tokens`` steps, the decoder's self-attention
+    cached).  The parameters are cast to the compute dtype once, as in
+    :class:`ServeEngine`.
+
+    ``stats`` records per ``transcribe``: the time to the first tokens on
+    the host (``ttft_s``: cache allocation, the encoder and the first
+    decode step) and the other steps' wall time (``decode_s``)."""
+
+    def __init__(self, cfg: ModelConfig, values, scfg: ServeConfig):
+        if not cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder: use "
+                             f"ServeEngine")
+        self.cfg = cfg
+        self.scfg = scfg
+        self.values = _compute_values(cfg, values)
+        self.device = values["embed"].device
+        self.stats: List[Dict[str, Any]] = []
+
+    def transcribe(self, frames: np.ndarray, bos: int = 1,
+                   max_new_tokens: int = 16) -> List[List[int]]:
+        B = frames.shape[0]
+        t0 = time.perf_counter()
+        caches = init_caches(self.cfg, B, self.scfg.max_len,
+                             self.scfg.cache_dtype, self.device)
+        frames = torch.from_numpy(np.asarray(frames)).to(self.device)
+        cur = torch.full((B, 1), bos, dtype=torch.int64, device=self.device)
+        enc_out = None
+        out: List[List[int]] = [[] for _ in range(B)]
+        t_first = None
+        for t in range(max_new_tokens):
+            pos = torch.full((B, 1), t, dtype=torch.int64,
+                             device=self.device)
+            logits, caches, enc_out, _ = encdec_apply(
+                self.values, self.cfg, frames, cur, positions=pos,
+                caches=caches, enc_out=enc_out)
+            cur = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            for i, tok in enumerate(cur[:, 0].tolist()):
+                out[i].append(tok)
+            if t_first is None:
+                t_first = time.perf_counter()
+        end = time.perf_counter()
+        self.stats.append({"batch": B, "frames": int(frames.shape[1]),
+                           "ttft_s": (t_first or end) - t0,
+                           "decode_steps": max(max_new_tokens - 1, 0),
+                           "decode_s": end - (t_first or end)})
+        return out

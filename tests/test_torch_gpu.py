@@ -22,7 +22,13 @@ machine without them:
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results;
 * a fresh plan server whose first two searches arrive at once builds B1
-  once and answers both as the ``vector`` backend does.
+  once and answers both as the ``vector`` backend does;
+* the kernels under autograd: the wrappers refuse inputs that require
+  grad, each Function's backward against autograd through its plain
+  version (in ``chip_smoke.py``'s phase), a smoke train step on the card
+  against the CPU (tinyllama, jamba, xlstm), whisper's smoke forward and
+  tokens against the CPU, and the smoke trainer's restart replaying its
+  losses bit for bit.
 """
 
 import sys
@@ -437,3 +443,70 @@ def test_a_new_threads_first_batch_on_cached_pinned_memory():
     want = fb.finish_cost_batch(*args, device="cpu")
     for g, w in zip(out["got"], want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """A kernel's output carries no ``grad_fn``: called directly on an
+    input that requires grad, with grad enabled, a wrapper raises rather
+    than cut the graph; ``ops`` takes the autograd Function instead."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    x = torch.randn(8, 64, device="cuda", requires_grad=True)
+    scale = torch.ones(64, device="cuda")
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        rn.fused_rmsnorm(x, scale)
+    w = torch.randn(64, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        ff.fused_swiglu(x, w, w, w.t().contiguous())
+    with torch.no_grad():
+        assert rn.fused_rmsnorm(x, scale).grad_fn is None
+    out = ops.rmsnorm(x, scale)
+    assert "RMSNorm" in type(out.grad_fn).__name__
+    (g,) = torch.autograd.grad(out.sum(), x)
+    assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "jamba-v0.1-52b",
+                                  "xlstm-350m"])
+def test_train_step_on_the_card_equals_the_cpu(arch):
+    """One fp32 smoke train step: loss within 1e-5, every gradient within
+    1e-4 of the CPU's relative to its norm, the same experts, launches of
+    one microbatch under remat (``chip_smoke.py``'s ``train_vs_cpu``)."""
+    needs_gpu()
+    _chip_smoke()._train_vs_cpu_case(arch)
+
+
+@pytest.mark.gpu
+def test_whisper_on_the_card_equals_the_cpu():
+    needs_gpu()
+    _chip_smoke().phase_whisper_vs_cpu()
+
+
+@pytest.mark.gpu
+def test_launch_train_restart_replays_on_the_card(tmp_path):
+    """The smoke trainer on the card: a failure injected at step 3
+    restores the step-2 checkpoint and replays the uninterrupted run's
+    losses bit for bit."""
+    needs_gpu()
+    from repro_torch.launch import train
+
+    base = ["--device", "cuda", "--smoke", "--steps", "5", "--seq", "32",
+            "--batch", "4", "--microbatches", "2"]
+    plain = train.run(train.parser().parse_args(base))
+    failed = train.run(train.parser().parse_args(
+        base + ["--ckpt-dir", str(tmp_path), "--save-every", "2",
+                "--fail-at", "3"]))
+    assert [s for s, _ in failed["losses"]] == [0, 1, 2, 2, 3, 4]
+    assert dict(failed["losses"]) == dict(plain["losses"])

@@ -612,19 +612,32 @@ def test_prefill_takes_no_positions(lms):
     ("xlstm-350m", "A3"), ("deepseek-v2-236b", "A3"),
     ("whisper-base", "A4")])
 def test_unported_kinds_raise_naming_their_roadmap_item(arch, item):
-    """Whisper's encoder-decoder (A4) raises naming its item.  A3's mixers
-    (MLA; mLSTM and sLSTM) are ported: their configs now build, with the
-    reference's parameter shapes, and run a forward."""
+    """Every kind once refused is ported: A3's mixers (MLA; mLSTM and
+    sLSTM) and A4's encoder-decoder (whisper) build with the reference's
+    parameter shapes and run a forward; whisper's logits equal the
+    reference's on its bridged parameters."""
     cfg = get_config(arch, smoke=True)
-    if item != "A3":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            lm_init(cfg, torch.Generator().manual_seed(0))
-        return
     values = param_values(lm_init(cfg, torch.Generator().manual_seed(0)))
+    jcfg = jax_get_config(arch, True)
     jtree = jax.eval_shape(lambda: jax_param_values(
-        jax_lm_init(jax.random.PRNGKey(0), jax_get_config(arch, True))))
+        jax_lm_init(jax.random.PRNGKey(0), jcfg)))
     assert shapes(values) == jax.tree.map(lambda a: tuple(a.shape), jtree)
-    logits, _, _ = lm_apply(values, cfg, torch.zeros((1, 6),
-                                                     dtype=torch.int64))
+    tokens = torch.zeros((1, 6), dtype=torch.int64)
+    if item != "A4":
+        logits, _, _ = lm_apply(values, cfg, tokens)
+    else:
+        from repro.models import encdec_apply as jax_encdec_apply
+
+        from repro_torch.models import encdec_apply
+
+        frames = rand((1, cfg.n_frontend_tokens, cfg.d_model), 4)
+        logits = encdec_apply(values, cfg, torch.from_numpy(frames),
+                              tokens)[0]
+        jvals = jax_param_values(jax_lm_init(jax.random.PRNGKey(0), jcfg))
+        bridged = lm_params_from_reference(np_tree(jvals))
+        got = encdec_apply(bridged, cfg, torch.from_numpy(frames), tokens)[0]
+        want = jax_encdec_apply(jvals, jcfg, jnp.asarray(frames),
+                                jnp.zeros((1, 6), jnp.int32))[0]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
     assert logits.shape == (1, 6, cfg.vocab)
     assert bool(torch.isfinite(logits).all())

@@ -156,19 +156,19 @@ def test_cli_cuda_without_a_gpu_exits_2(capsys):
                                        ("deepseek-v2-236b", "A3"),
                                        ("whisper-base", "A4")])
 def test_cli_refuses_unported_archs(arch, item, capsys):
-    """whisper-base's encoder-decoder (A4) exits 2 naming its item; A3's
-    archs (xlstm-350m, deepseek-v2-236b) are ported and served."""
+    """No arch is refused any more: A3's archs (xlstm-350m,
+    deepseek-v2-236b) and A4's whisper-base (through ``EncDecEngine``) are
+    served, 6 requests of 8 tokens each."""
     rc = main(["--device", "cpu", "--smoke", "--arch", arch])
     out, err = capsys.readouterr()
-    if item == "A3":
-        assert rc == 0 and not err
-        reqs = [line for line in out.splitlines() if line.startswith("req ")]
-        assert len(reqs) == 6
-        assert all(len(json.loads(line.split(": ", 1)[1])) == 8
-                   for line in reqs)
-        return
-    assert rc == 2
-    assert err.startswith("error:") and f"ROADMAP {item}" in err
+    assert rc == 0 and not err
+    reqs = [line for line in out.splitlines() if line.startswith("req ")]
+    assert len(reqs) == 6
+    assert all(len(json.loads(line.split(": ", 1)[1])) == 8
+               for line in reqs)
+    groups = [line for line in out.splitlines()
+              if line.startswith("group: ")]
+    assert len(groups) == (1 if item == "A4" else 2)
 
 
 LM_MODULES = ("repro_torch.configs", "repro_torch.configs.tinyllama_1_1b",
