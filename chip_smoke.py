@@ -52,7 +52,15 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   fault-injected restart that must replay the uninterrupted run's losses
   bit for bit, a full-width checkpoint that must restore bit for bit);
   one smoke train step of tinyllama, jamba and xlstm on the card against
-  the CPU.
+  the CPU;
+* the H100 planner: ``python -m repro_torch plan-h100`` over the ten
+  configs, its GA batches through the streaming-block kernel, each plan
+  equal to the ``vector`` backend's on the CPU, beside one tinyllama
+  layer's forward at the planned tokens;
+* the sharded train step: ``launch.train --model-parallel 1`` on a (1, 1)
+  mesh of ``DTensor``s under a one-rank NCCL group, the kernels through
+  ``local_map``, bit for bit the same 3 steps without a mesh, and int8
+  error-feedback compression of its gradients equal to the CPU's.
 
 Last it times every kernel beside its plain version, its bound and the
 library call where one computes the same function (and each backward
@@ -1890,6 +1898,260 @@ def phase_train_vs_cpu() -> dict:
     return {"cases": [_train_vs_cpu_case(a) for a in TRAIN_VS_CPU_ARCHS]}
 
 
+# -- the H100 planner ---------------------------------------------------------
+
+# plan_h100: `python -m repro_torch plan-h100` at its defaults (all ten
+# configs, 2,000 samples, 8,192 tokens, seed 0) on the card; every plan
+# held to the same search on the vector backend on the CPU
+PLAN_H100_ARGS = ("--device", "cuda", "plan-h100")
+PLAN_H100_TOKENS = 8192
+PLAN_FIELDS = ("fusion_groups", "hbm_bytes", "hbm_bytes_unfused",
+               "glb_budget", "block_m", "layer_idx")
+
+
+def _layer_forward_device_ms(tokens: int) -> dict:
+    """One tinyllama-1.1b layer's forward (layer 0 at full width, bf16
+    parameters from seed 0, one sequence of ``tokens``) on the card: the
+    profiler's device time of a warm call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, param_values
+
+    cfg = get_config("tinyllama-1.1b")
+    spec = cfg.block_specs()[0]
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    vals = param_values(blocks.block_init(gen, cfg, spec, torch.bfloat16,
+                                          CARD))
+    x = (torch.randn((1, tokens, cfg.d_model), generator=gen,
+                     device=CARD) * 0.5).to(torch.bfloat16)
+    pos = torch.arange(tokens, device=CARD)[None]
+
+    def fwd():
+        with torch.no_grad():
+            out = blocks.block_apply(vals, cfg, spec, x, pos, fresh=True)[0]
+        torch.cuda.synchronize()
+        return out
+
+    fwd()
+    _, trace = _traced(fwd)
+    return {"device_busy_ms": trace["device_busy_ms"],
+            "traced_wall_s": trace["traced_wall_s"],
+            "top_device_ms": trace["top_device_ms"][:6]}
+
+
+def phase_plan_h100() -> dict:
+    """Cocco as the H100's execution planner through the CLI entry point:
+    ten plans on the card (B1 once a GA generation), each equal to the
+    vector backend's on the CPU; beside tinyllama's, its modeled HBM
+    bytes over the card's rate and the device time of one layer's forward
+    at the same tokens (for PERF.md, not a gate)."""
+    import contextlib
+    import io
+
+    from repro_torch.api import cli
+    from repro_torch.configs import get_config
+    from repro_torch.core import h100_adapter
+    from repro_torch.kernels import finish_batch as fb
+    from repro_torch.obs import Recorder, recording
+
+    plans = []
+    inner = cli.plan_h100
+
+    def keep(*a, **kw):
+        plans.append(inner(*a, **kw))
+        return plans[-1]
+
+    rec, buf = Recorder(), io.StringIO()
+    fb.launches = 0
+    cli.plan_h100 = keep
+    try:
+        t0 = time.perf_counter()
+        with recording(rec), contextlib.redirect_stdout(buf):
+            rc = cli.main(list(PLAN_H100_ARGS))
+        wall = time.perf_counter() - t0
+    finally:
+        cli.plan_h100 = inner
+    launches = fb.launches
+    batches = rec.counters.get("engine.array_batches", 0)
+    lines = buf.getvalue().splitlines()
+    differ = []
+    t0 = time.perf_counter()
+    for plan in plans:
+        want = h100_adapter.plan_architecture(
+            get_config(plan.arch), tokens_local=PLAN_H100_TOKENS,
+            sample_budget=2_000, seed=0, device="cpu",
+            eval_backend="vector")
+        if any(getattr(plan, f) != getattr(want, f) for f in PLAN_FIELDS):
+            differ.append(plan.arch)
+    wall_vector = time.perf_counter() - t0
+    tiny = next(p for p in plans if p.arch == "tinyllama-1.1b")
+    out = {"phase": "plan_h100", "args": list(PLAN_H100_ARGS), "rc": rc,
+           "summaries": lines, "wall_s": wall, "wall_vector_s": wall_vector,
+           "kernel_launches": launches, "array_batches": batches,
+           "plans": {p.arch: {"glb_budget": p.glb_budget,
+                              "traffic_saving": p.traffic_saving,
+                              "hbm_bytes": p.hbm_bytes,
+                              "hbm_bytes_unfused": p.hbm_bytes_unfused,
+                              "block_m": p.block_m,
+                              "groups": len(p.fusion_groups)}
+                     for p in plans},
+           "differ_from_vector": differ,
+           "tinyllama_l0": {
+               "modeled_hbm_bytes": tiny.hbm_bytes,
+               "modeled_hbm_ms": tiny.hbm_bytes / HBM_BYTES_PER_S * 1e3,
+               "modeled_unfused_ms": (tiny.hbm_bytes_unfused
+                                      / HBM_BYTES_PER_S * 1e3),
+               "tp_degree_in_graph": 16,
+               "layer_forward": _layer_forward_device_ms(PLAN_H100_TOKENS)}}
+    emit(out)
+    if rc != 0 or len(lines) != 10 or len(plans) != 10:
+        raise AssertionError(f"plan-h100 exited {rc} with {len(lines)} "
+                             f"summaries")
+    if differ:
+        raise AssertionError(f"plan-h100: {differ} differ from the vector "
+                             f"backend's plans")
+    if launches == 0 or launches != batches:
+        raise AssertionError(f"plan-h100: {launches} launches for "
+                             f"{batches} batches")
+    return out
+
+
+# -- the sharded train step ----------------------------------------------------
+
+# sharded: train's traffic (tinyllama-1.1b whole, 8 x 512 in 2
+# microbatches, fp32 parameters and AdamW state, bf16 compute, remat) for
+# 3 steps through launch.train.run, without a mesh and then with
+# --model-parallel 1 on a (data 1, model 1) mesh under a world-1 NCCL group
+SHARDED_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b", "--steps",
+                "3", "--batch", "8", "--seq", "512", "--microbatches", "2",
+                "--lr", "3e-3", "--warmup", "2", "--seed", "0",
+                "--log-every", "1")
+SHARDED_REL_TOL = 1e-6  # a leaf some DTensor op rounds otherwise
+
+
+def phase_sharded(device: dict) -> dict:
+    """The DTensor route of the train step on the card: the same 3 steps
+    without a mesh and on a (1, 1) mesh of ``DTensor``s (B2-B4 through
+    ``local_map``) in one process: losses and every parameter after step
+    3 bit for bit (or within :data:`SHARDED_REL_TOL` relative to the
+    leaf's norm, the leaf named), B2-B4's launches equal and equal to the
+    structure; int8 error-feedback compression of the mesh's first
+    gradient tree on the card equal to the CPU's, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import keypath_items
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.runtime import build_mesh, plan_mesh
+    from repro_torch.train import AdamWConfig, loss_and_grads
+
+    args = train.parser().parse_args(SHARDED_ARGS)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    counters = _lm_counters()
+    expected = {lib: n * args.microbatches * args.steps
+                for lib, n in _per_forward(cfg, scanned_times=2).items()}
+
+    def counted(a):
+        for mod in counters.values():
+            mod.launches = 0
+        out, log = _quiet_train(a)
+        return out, {lib: mod.launches for lib, mod in counters.items()}
+
+    plain, plain_launches = counted(args)
+    if not train._process_group(CARD):  # a world-1 NCCL group
+        raise AssertionError("sharded: a process group already exists")
+    try:
+        meshed, mesh_launches = counted(train.parser().parse_args(
+            SHARDED_ARGS + ("--model-parallel", "1")))
+        params = dict(keypath_items(meshed["state"]["params"]))
+        want = dict(keypath_items(plain["state"]["params"]))
+        not_dt = [k for k, v in params.items()
+                  if not hasattr(v, "placements")]
+        differ, rel = [], {}
+        for k, v in params.items():
+            got = v.full_tensor() if hasattr(v, "placements") else v
+            if not torch.equal(got, want[k]):
+                differ.append(k)
+                rel[k] = float((got.float() - want[k].float()).norm()
+                               / want[k].float().norm().clamp_min(1e-30))
+        placements = sorted({str(tuple(v.placements)) for v in params.values()
+                             if hasattr(v, "placements")})
+        del meshed["state"], plain["state"], params, want
+        torch.cuda.empty_cache()
+
+        # int8 error feedback over the mesh's gradient tree of step 0's
+        # first microbatch, on the card and on the CPU
+        mesh = build_mesh(plan_mesh(1, 1), CARD)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.batch,
+                                      seed=args.seed))
+        mb = {k: v[:args.batch // args.microbatches]
+              for k, v in to_device(data.batch_at(0), CARD).items()}
+        opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                              total_steps=args.steps,
+                              state_dtype=cfg.opt_dtype)
+        with mesh_context(mesh, rules_for(cfg, "train")):
+            values, _ = train.build_state(cfg, opt_cfg, CARD, args.seed,
+                                          mesh)
+            _, _, grads = loss_and_grads(cfg, values, mb)
+        del values
+        grads = {k: g.full_tensor() for k, g in keypath_items(grads)}
+        host = {k: g.cpu() for k, g in grads.items()}
+        q, s, ef = coll.compress_int8_ef(grads, coll.ef_init(grads))
+        dq, _ = coll.compressed_grad_step(grads, coll.ef_init(grads),
+                                          "int8_ef")
+        hq, hs, hef = coll.compress_int8_ef(host, coll.ef_init(host))
+        hdq, _ = coll.compressed_grad_step(host, coll.ef_init(host),
+                                           "int8_ef")
+        compress_differ = [k for k in grads if not (
+            torch.equal(q[k].cpu(), hq[k]) and torch.equal(s[k].cpu(), hs[k])
+            and torch.equal(ef.residual[k].cpu(), hef.residual[k])
+            and torch.equal(dq[k].cpu(), hdq[k]))]
+        n_grad = sum(g.numel() for g in grads.values())
+        del grads, host, q, s, ef, dq, hq, hs, hef, hdq
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    warm = (sum(plain["step_s"][1:]) / len(plain["step_s"][1:]),
+            sum(meshed["step_s"][1:]) / len(meshed["step_s"][1:]))
+    out = {"phase": "sharded", "device": device["nvidia_smi"],
+           "arch": cfg.name, "args": list(SHARDED_ARGS),
+           "mesh": [1, 1], "placements": placements,
+           "losses": meshed["losses"], "losses_no_mesh": plain["losses"],
+           "losses_bitwise_equal": meshed["losses"] == plain["losses"],
+           "params_not_dtensor": not_dt,
+           "params_differing": differ, "params_rel_err": rel,
+           "launches": mesh_launches, "launches_no_mesh": plain_launches,
+           "expected_launches": expected,
+           "step_s": meshed["step_s"], "step_s_no_mesh": plain["step_s"],
+           "warm_step_s": warm[1], "warm_step_s_no_mesh": warm[0],
+           "dtensor_cost_s_per_step": warm[1] - warm[0],
+           "int8_ef_elements": n_grad,
+           "int8_ef_differ_from_cpu": compress_differ}
+    emit(out)
+    if not out["losses_bitwise_equal"]:
+        raise AssertionError("sharded: the mesh's losses differ from the "
+                             "run without one")
+    if not_dt:
+        raise AssertionError(f"sharded: {not_dt} are not DTensors")
+    if any(e > SHARDED_REL_TOL for e in rel.values()):
+        raise AssertionError(f"sharded: parameters off by {rel}")
+    if mesh_launches != plain_launches or mesh_launches != expected:
+        raise AssertionError(f"sharded: launches {mesh_launches} (no mesh "
+                             f"{plain_launches}, structure {expected})")
+    if compress_differ:
+        raise AssertionError(f"sharded: int8 compression on the card "
+                             f"differs from the CPU's at {compress_differ}")
+    return out
+
+
 # -- LM kernels ---------------------------------------------------------------
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -2547,11 +2809,11 @@ PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
           "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
           "serve_whisper", "whisper_vs_cpu", "train", "train_vs_cpu",
-          "lm_timing")
+          "plan_h100", "sharded", "lm_timing")
 # the phases that run a model at full width, whose launches the kernels
 # line sums
 MAIN_PATHS = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm",
-              "serve_whisper", "train")
+              "serve_whisper", "train", "sharded")
 
 
 def main(argv=None) -> int:
@@ -2627,6 +2889,10 @@ def main(argv=None) -> int:
         served["train"] = phase_train(device)
     if run("train_vs_cpu"):
         phase_train_vs_cpu()
+    if run("plan_h100"):
+        b1_launches["plan_h100"] = phase_plan_h100()["kernel_launches"]
+    if run("sharded"):
+        served["sharded"] = phase_sharded(device)
     lm_rows = phase_lm_timing() if run("lm_timing") else None
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)

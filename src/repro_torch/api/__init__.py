@@ -48,7 +48,7 @@ from .store import (
     graph_fingerprint,
     spec_key,
 )
-from .strategies import active_store, compare, run
+from .strategies import active_store, compare, plan_h100, run
 from .workloads import (
     WorkloadScheme,
     build_workload,
@@ -82,6 +82,7 @@ __all__ = [
     "list_strategies",
     "list_workloads",
     "parse_workload",
+    "plan_h100",
     "register_strategy",
     "register_workload_scheme",
     "run",

@@ -25,6 +25,11 @@ Subcommands:
 * ``zoo``       — ``build`` the precomputed plan zoo (resumable grid sweep
                   into a store directory), ``ls`` grid coverage, ``verify``
                   replay integrity of every artifact.
+* ``plan-h100`` — Cocco as the H100's execution planner: one block of each
+                  bundled architecture searched under the card's on-chip
+                  buffer (:mod:`repro_torch.core.h100_adapter`), one
+                  summary line each.  (The JAX package's ``plan-tpu`` has
+                  no counterpart: asking for it exits 2.)
 
 ``--workload`` takes a URI (a bare name is ``netlib:<name>``): e.g.
 ``netlib:resnet50``, ``tpu:gemma3-4b:0?tokens=4096``,
@@ -32,7 +37,7 @@ Subcommands:
 
 ``--device`` (before the subcommand) is ``cuda`` (the default) or ``cpu``.
 With ``cuda`` and no GPU, ``explore``, ``compare``, ``trace``, ``zoo
-build`` and the ``serve-plans`` server print ``error: ...`` and exit 2;
+build``, ``plan-h100`` and the ``serve-plans`` server print ``error: ...`` and exit 2;
 they never carry on on the CPU.  ``--eval-backend`` picks the
 evaluation-engine executor (``repro_torch.core.engine``: ``serial`` |
 ``process`` | ``vector`` | ``torch``; default ``torch``): ``torch``
@@ -82,7 +87,7 @@ from .registry import list_strategies, options_class_for
 from .result import ExploreResult
 from .spec import ExploreSpec
 from .store import ResultStore
-from .strategies import compare, run
+from .strategies import compare, plan_h100, run
 
 
 def _parse_opt_overrides(pairs: List[str]) -> Dict[str, Any]:
@@ -496,6 +501,18 @@ def cmd_trace(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_plan_h100(args: argparse.Namespace) -> int:
+    from repro_torch.configs import ARCHS
+
+    archs = [args.arch] if args.arch else list(ARCHS)
+    for arch in archs:
+        plan = plan_h100(arch, tokens=args.tokens, layer_idx=args.layer,
+                         sample_budget=args.samples, seed=args.seed,
+                         device=args.device)
+        print(plan.summary())
+    return 0
+
+
 def cmd_serve_plans(args: argparse.Namespace) -> int:
     from repro_torch.serve.plans import (
         PlanServer,
@@ -701,6 +718,17 @@ def _add_spec_args(p: argparse.ArgumentParser) -> None:
                         "set; unset means no filesystem traffic)")
 
 
+def _subcommand(argv: List[str]) -> Optional[str]:
+    """The first word of ``argv`` that is not a global option."""
+    it = iter(argv)
+    for word in it:
+        if word == "--device":
+            next(it, None)
+        elif not word.startswith("-"):
+            return word
+    return None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="repro_torch",
@@ -806,6 +834,16 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from repro_torch.serve.zoo import DEFAULT_BUDGET
 
+    ph = sub.add_parser("plan-h100",
+                        help="Cocco as the H100's execution planner")
+    ph.add_argument("--arch", default=None,
+                    help="model config name (default: all)")
+    ph.add_argument("--tokens", type=int, default=8192)
+    ph.add_argument("--layer", type=int, default=None)
+    ph.add_argument("--samples", type=int, default=2_000)
+    ph.add_argument("--seed", type=int, default=0)
+    ph.set_defaults(fn=cmd_plan_h100, needs_device=True)
+
     psp = sub.add_parser(
         "serve-plans",
         help="HTTP plan server over a result store (docs/serving.md)")
@@ -890,6 +928,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                           "checks parse/spec-hash/re-scored cost)")
     pzv.set_defaults(fn=cmd_zoo_verify, needs_device=False)
 
+    if _subcommand(sys.argv[1:] if argv is None else argv) == "plan-tpu":
+        print("error: the port plans for the H100, not a TPU: use plan-h100",
+              file=sys.stderr)
+        return 2
     args = ap.parse_args(argv)
     backend = getattr(args, "eval_backend", None)
     if backend is not None:

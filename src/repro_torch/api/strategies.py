@@ -565,3 +565,25 @@ def _strategy_two_step(spec: ExploreSpec, opts: TwoStepOptions, g: Graph,
         samples_per_capacity=opts.samples_per_capacity,
         seed=spec.seed, out_tile=spec.out_tile, ev=ev)
     return _from_search(spec, res, sampler=opts.sampler)
+
+
+# ---------------------------------------------------------------------------
+# H100 planning (wraps the execution-planner adapter)
+# ---------------------------------------------------------------------------
+
+def plan_h100(arch: str, tokens: int = 8192, layer_idx: Optional[int] = None,
+              sample_budget: int = 3_000, seed: int = 0,
+              device: str = "cuda"):
+    """Run Cocco as the H100's execution planner for one architecture.
+
+    Thin wrapper over :func:`repro_torch.core.h100_adapter.plan_architecture`
+    so callers (CLI ``plan-h100``) go through one surface; ``device``
+    places the GA's cost batches (``"cuda"``: one B1 launch a generation).
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.core.h100_adapter import plan_architecture
+
+    cfg = get_config(arch)
+    return plan_architecture(cfg, tokens_local=tokens, layer_idx=layer_idx,
+                             sample_budget=sample_budget, seed=seed,
+                             device=device)

@@ -77,8 +77,14 @@ def fill_template(template, leaves: Dict[str, Any], path: str = ""):
 def to_numpy(leaf) -> np.ndarray:
     """A leaf as the NumPy array the reference would write (bf16 as its
     two raw bytes); a tensor is copied, so that a save in flight holds a
-    snapshot while the step updates the tensor in place."""
+    snapshot while the step updates the tensor in place.  A ``DTensor``
+    is gathered whole first: a collective, so every rank of its mesh
+    calls this for it."""
     if isinstance(leaf, torch.Tensor):
+        from repro_torch.parallel.sharding import is_dtensor
+
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")

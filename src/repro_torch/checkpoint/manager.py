@@ -1,6 +1,11 @@
-"""Checkpoint manager: retention, resume and async save (the JAX package's
-``repro.checkpoint.manager``).  Resharding onto another mesh waits for the
-port's meshes (ROADMAP A8)."""
+"""Checkpoint manager: retention, resume, async save and elastic
+resharding (the JAX package's ``repro.checkpoint.manager``).
+
+Under a process group of several ranks every rank calls ``save``: each
+``DTensor`` leaf is gathered whole (a collective), and rank 0 alone writes
+the files, so they are the reference's bytes whatever the mesh.  The
+other ranks meet rank 0 at its next :meth:`CheckpointManager.wait` (a
+barrier), so no rank reads a step before it lands."""
 
 from __future__ import annotations
 
@@ -8,7 +13,9 @@ import os
 import shutil
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch.distributed as dist
 
 from .io import (checkpoint_steps, fill_template, keypath_items,
                  load_checkpoint, save_checkpoint, to_numpy)
@@ -21,6 +28,12 @@ class CheckpointConfig:
     keep_last: int = 3
     keep_every: int = 0            # additionally keep every k-th (0 = off)
     async_save: bool = True
+
+
+def _rank_world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
@@ -45,6 +58,8 @@ class CheckpointManager:
             save_checkpoint(self.cfg.directory, step, host, extra_meta)
             self._retain()
 
+        if _rank_world()[0] != 0:
+            return
         if blocking or not self.cfg.async_save:
             work()
         else:
@@ -55,6 +70,8 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if _rank_world()[1] > 1:
+            dist.barrier()
 
     def _retain(self):
         steps = checkpoint_steps(self.cfg.directory)
@@ -79,8 +96,23 @@ class CheckpointManager:
         return load_checkpoint(self.cfg.directory, step, template)
 
 
-def reshard_to(tree, shardings):
-    """Placing a restored tree onto a new mesh waits for the port's
-    meshes."""
-    raise NotImplementedError("reshard_to is not ported to repro_torch yet "
-                              "(ROADMAP A8)")
+def reshard_to(tree, shardings, device="cpu"):
+    """Place host arrays according to new shardings (elastic restart after
+    a mesh-shape change: the host holds full arrays, ``distribute_tensor``
+    splits them for the new mesh).  ``shardings`` mirrors ``tree``; a leaf
+    is ``(mesh, placements)`` (as ``logical_sharding`` gives placements),
+    or None for a plain tensor on ``device``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from .io import tree_to_torch
+
+    def place(x, s):
+        if isinstance(x, dict):
+            return {k: place(x[k], s[k]) for k in x}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(place(a, b) for a, b in zip(x, s)))
+        t = tree_to_torch(x, device) if s is None else tree_to_torch(
+            x, s[0].device_type)
+        return t if s is None else distribute_tensor(t, s[0], s[1])
+
+    return place(tree, shardings)

@@ -8,9 +8,10 @@ explorable by every strategy.  The graph's rows are tokens: pointwise ops
 sequence is a FULL edge.  Line bytes are the per-token tensor widths in
 bf16 after tensor-parallel sharding, and weights are the per-device shards.
 
-The port's copy of ``repro.core.tpu_adapter.build_block_graph``; the
-planner that maps a device's memory hierarchy onto the cost model
-(``plan_architecture``) is not ported.
+The port's copy of ``repro.core.tpu_adapter.build_block_graph``.  The
+planner that maps a device's memory hierarchy onto the cost model over
+this graph is :func:`repro_torch.core.h100_adapter.plan_architecture`,
+for the H100.
 """
 
 from __future__ import annotations

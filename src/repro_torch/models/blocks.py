@@ -11,6 +11,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import shard
+
 from .config import (
     ATTN,
     ATTN_LOCAL,
@@ -89,7 +91,13 @@ def block_apply(
     ``fresh`` and ``bidirectional`` as in
     :func:`repro_torch.models.layers.attention_apply`."""
     check_supported(spec)
+    # Megatron-SP: the residual stream lives seq-sharded between blocks (a
+    # no-op unless the "seq_res" rule maps to a mesh axis); the norm runs on
+    # the shard, the mixer/FFN gather the sequence and their TP outputs
+    # reduce back
+    x = shard(x, "batch", "seq_res", None)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = shard(h, "batch", None, None)
     if spec.mixer == MAMBA:
         out, new_cache = mamba_apply(params["mixer"], cfg, h, state=cache)
     elif spec.mixer == MLSTM:
@@ -105,17 +113,19 @@ def block_apply(
                                          window=window, cache=cache,
                                          kv_source=kv_source, fresh=fresh,
                                          bidirectional=bidirectional)
-    x = x + out
+    x = x + shard(out, "batch", "seq_res", None)
     aux = None
     if spec.ffn != FFN_NONE:
         h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        h = shard(h, "batch", None, None)
         if spec.ffn == FFN_DENSE:
-            x = x + ffn_apply(params["ffn"], h, cfg.act)
+            x = x + shard(ffn_apply(params["ffn"], h, cfg.act),
+                          "batch", "seq_res", None)
         else:
             mo, aux = moe_apply(params["moe"], cfg, h, cfg.act)
             if spec.ffn == FFN_MOE_RESIDUAL:  # Arctic: dense residual || MoE
                 mo = mo + ffn_apply(params["ffn"], h, cfg.act)
-            x = x + mo
+            x = x + shard(mo, "batch", "seq_res", None)
     return x, new_cache, aux
 
 

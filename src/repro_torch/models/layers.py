@@ -5,9 +5,11 @@ gradient deferred to one contraction after the reverse scan).
 
 Every ``*_init`` returns a tree of nested dicts whose leaves are
 :class:`Param` (value + logical axes); ``*_apply`` consumes the matching
-*value* tree.  The logical axes ride along for the sharding port (ROADMAP
-A8); without a mesh the JAX package's ``shard(...)`` is a no-op, so the
-port has none.
+*value* tree.  The logical axes place each parameter on a device mesh
+(:func:`repro_torch.parallel.sharding.logical_sharding`), and
+``shard(...)`` stands where the JAX package's stands: under a mesh it
+redistributes a ``DTensor`` activation to its logical placement, without
+one it is a no-op.
 
 RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where its
 contract holds, attention go through :mod:`repro_torch.kernels.ops`: the
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.parallel.sharding import is_dtensor, shard
 
 from .config import ModelConfig
 
@@ -97,6 +100,20 @@ def _ones(shape, axes, dtype=torch.float32, device=None) -> Param:
 
 def _zeros(shape, axes, dtype=torch.float32, device=None) -> Param:
     return Param(torch.zeros(shape, dtype=dtype, device=device), axes)
+
+
+def _elementwise(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """An elementwise ``fn`` of ``x``; of a ``DTensor`` through
+    ``local_map`` on its own placements (a pending sum reduced first), for
+    an op whose gradient ``DTensor`` has no sharding rule for."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+                     in_grad_placements=(pl,), redistribute_inputs=True)(x)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -309,6 +326,10 @@ def attention_apply(params, cfg: ModelConfig, x, positions,
     if kv_source is None:  # self-attention: rotary on q & k
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q.view(B, S, kh, g, dh), "batch", "seq", "kv_heads", None,
+              None).view(B, S, h, dh)
+    k = shard(k, "batch", "seq_kv", "kv_heads", None)
+    v = shard(v, "batch", "seq_kv", "kv_heads", None)
 
     T = cache["k"].shape[1] if cache is not None else S
     if cache is not None:
@@ -352,7 +373,7 @@ def attention_apply(params, cfg: ModelConfig, x, positions,
                                    softcap=cfg.logit_softcap,
                                    chunk=cfg.attn_chunk)
     out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
-    return out, cache
+    return shard(out, "batch", "seq", None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -441,11 +462,13 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         kf = torch.cat([kv[..., :dh].to(dt),
                         k_rope.to(dt).expand(B, S, h, r)], dim=-1)
 
-        def padded(t):  # [B, S, h, w] -> [B, h, S, width]
+        def padded(t, seq):  # [B, S, h, w] -> [B, h, S, width]
+            t = shard(t, "batch", seq, "heads", None)
             return F.pad(t.to(dt), (0, width - t.shape[-1])).transpose(1, 2)
 
-        out = ops.attention(padded(q), padded(kf), padded(kv[..., dh:]),
-                            causal=True, scale=scale)
+        out = ops.attention(padded(q, "seq"), padded(kf, "seq_kv"),
+                            padded(kv[..., dh:], "seq_kv"), causal=True,
+                            scale=scale)
         out = out[..., :dv].transpose(1, 2).to(kv.dtype)
     else:
         if cache is not None:
@@ -462,7 +485,7 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
                                chunk=cfg.attn_chunk, scale=scale)
         out = out[:, :, :, 0, :]
     out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
-    return out, cache
+    return shard(out, "batch", "seq", None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +515,7 @@ def ffn_apply(params, x, act: str = "silu"):
         return out.reshape(*x.shape[:-1], out.shape[-1])
     h = F.gelu(_mm(x, params["wg"]), approximate="tanh") * _mm(
         x, params["wi"])
+    h = shard(h, "batch", "seq", "ff")
     return _mm(h, params["wo"])
 
 
@@ -517,33 +541,22 @@ def moe_init(gen, cfg: ModelConfig, dtype=torch.float32, device=None):
     return p
 
 
-def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
-    """x: [B, S, d] -> (out [B, S, d], Switch aux loss, fp32 scalar).
-
-    The reference's per-sequence capacity dispatch: each sequence gives
-    every expert ``C`` slots; the ``k`` choices of its tokens, sorted
-    stably by expert, take an expert's slots in token order, and those
-    past ``C`` are dropped.  The slots are laid out expert-major,
-    ``[E, B, C, d]``, so that each expert's ``B * C`` rows are one
-    contiguous ``[B*C, d]`` block: with ``act="silu"`` each goes through
-    ``ops.swiglu`` (B3 on a CUDA tensor), every expert every call, as the
-    reference computes its dense buffer.  GeLU experts stay plain torch.
-    The combine sums each token's choices in a fixed order, so that a run
-    repeats its tokens bit for bit on any device."""
+def _moe_route(x, router, cfg: ModelConfig):
+    """The router and the dispatch of one batch of sequences: (buf ``[E,
+    B*C, d]``, dest, w, ranks, me, ce); see :func:`moe_apply`."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = max(1, int(cfg.capacity_factor * k * S / E))
     BC = B * C
 
-    logits = _mm(x.float(), params["router"])                # [B,S,E]
+    logits = _mm(x.float(), router)                          # [B,S,E]
     gates = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(gates, k, dim=-1)                # [B,S,k]
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # aux load-balancing loss (Switch-style)
+    # the aux loss's means (Switch-style load balancing)
     me = gates.mean(dim=(0, 1))                              # [E]
     ce = F.one_hot(topi, E).sum(dim=2).float().mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce) * cfg.router_aux_coef
 
     flat_e = topi.reshape(B, S * k)
     # stable, as jnp.argsort: the tie order decides who is dropped
@@ -562,34 +575,123 @@ def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
 
     buf = x.new_zeros((E * BC + 1, d)).index_add_(
         0, dest.reshape(-1), xs.reshape(-1, d))[:-1]
-    xe = buf.view(E, BC, d)
-    if act == "silu":
-        dt = torch.promote_types(x.dtype, params["wg"].dtype)
-        xe = xe.to(dt)
-        wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
-        ys = [ops.swiglu(xe[e], wg[e], wi[e], wo[e]) for e in range(E)]
-    else:
-        h = F.gelu(_mm(xe, params["wg"]), approximate="tanh") * _mm(
-            xe, params["wi"])
-        ys = list(_mm(h, params["wo"]))
-    # a zero row for the dropped choices, as the reference pads
-    y = torch.cat(ys + [ys[0].new_zeros((1, d))])           # [E*B*C+1, d]
-
-    # each token's k weighted outputs, summed in x's dtype in the order of
-    # their experts, as the reference's scatter-add over the expert-sorted
-    # choices adds them one at a time.  (A CUDA index_add_ adds in the order
-    # its atomics land: with more than two terms a bf16 sum then rounds
-    # differently from run to run.)
-    yc = y[dest.reshape(-1)] * (ws * keep).reshape(-1, 1).to(y.dtype)
     ranks = torch.argsort(sort_idx, dim=-1).view(B, S, k).sort(-1).values
-    yk = yc.to(x.dtype)[(batch[..., None] * (S * k) + ranks).reshape(-1)]
+    return buf.view(E, BC, d), dest, ws * keep, ranks, me, ce
+
+
+def _moe_combine(ye, dest, w, ranks, x_dtype):
+    """Each token's k weighted expert outputs (``ye`` ``[E, B*C, d]``),
+    summed in ``x_dtype`` in the order of their experts; see
+    :func:`moe_apply`."""
+    E, BC, d = ye.shape
+    B, S, k = ranks.shape
+    # a zero row for the dropped choices, as the reference pads
+    y = torch.cat([ye.reshape(E * BC, d), ye.new_zeros((1, d))])
+    yc = y[dest.reshape(-1)] * w.reshape(-1, 1).to(y.dtype)
+    batch = torch.arange(B, device=ye.device)[:, None]
+    yk = yc.to(x_dtype)[(batch[..., None] * (S * k) + ranks).reshape(-1)]
     yk = yk.view(B, S, k, d)
     out = yk[:, :, 0]
     for j in range(1, k):
         out = out + yk[:, :, j]
+    return out
+
+
+def _row_placements(x):
+    """Under a mesh: a function from a tensor dim to the placements that
+    shard it where ``shard(x, "batch", ...)`` shards the batch rows
+    (``Replicate()`` on every other mesh dim), the placements that are
+    ``Partial()`` on those mesh dims, and the number of row shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = tuple(p == Shard(0) for p in shard(
+        x, "batch", *([None] * (x.dim() - 1))).placements)
+    n = 1
+    for i, r in enumerate(rows):
+        n *= x.device_mesh.size(i) if r else 1
+
+    def on(dim):  # None: replicated on every mesh dim
+        return tuple(Shard(dim) if r and dim is not None else Replicate()
+                     for r in rows)
+
+    return on, tuple(Partial() if r else Replicate() for r in rows), n
+
+
+def _moe_route_dt(x, router, cfg: ModelConfig):
+    """:func:`_moe_route` on each rank's own sequences: the buffer's rows
+    and the index tensors sharded with the batch, the aux loss's means
+    partial over the row shards (each shard's mean over its count)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    on, part, n = _row_placements(x)
+
+    def route(xl, rl):
+        buf, dest, w, ranks, me, ce = _moe_route(xl, rl, cfg)
+        return buf, dest, w, ranks, me / n, ce / n
+
+    return local_map(route, out_placements=(on(1), on(0), on(0), on(0),
+                                            part, part),
+                     in_placements=(on(0), on(None)),
+                     in_grad_placements=(on(0), part),
+                     redistribute_inputs=True)(x, router)
+
+
+def _moe_combine_dt(x, ye, dest, w, ranks):
+    """:func:`_moe_combine` on each rank's own sequences."""
+    from torch.distributed.tensor.experimental import local_map
+
+    on, _, _ = _row_placements(x)
+    dt = x.dtype
+    pl = (on(1), on(0), on(0), on(0))
+    return local_map(lambda *a: _moe_combine(*a, dt), out_placements=(on(0),),
+                     in_placements=pl, in_grad_placements=pl,
+                     redistribute_inputs=True)(ye, dest, w, ranks)
+
+
+def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
+    """x: [B, S, d] -> (out [B, S, d], Switch aux loss, fp32 scalar).
+
+    The reference's per-sequence capacity dispatch: each sequence gives
+    every expert ``C`` slots; the ``k`` choices of its tokens, sorted
+    stably by expert, take an expert's slots in token order, and those
+    past ``C`` are dropped.  The slots are laid out expert-major,
+    ``[E, B, C, d]``, so that each expert's ``B * C`` rows are one
+    contiguous ``[B*C, d]`` block: with ``act="silu"`` each goes through
+    ``ops.swiglu`` (B3 on a CUDA tensor), every expert every call, as the
+    reference computes its dense buffer.  GeLU experts stay plain torch.
+    The combine sums each token's choices in a fixed order, so that a run
+    repeats its tokens bit for bit on any device.
+
+    Under a mesh the routing and the combine run on each rank's own
+    sequences (``local_map`` over the batch shards: the dispatch is per
+    sequence), and the experts take the buffer as ``shard`` places it."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    if is_dtensor(x):
+        buf, dest, w, ranks, me, ce = _moe_route_dt(x, params["router"], cfg)
+    else:
+        buf, dest, w, ranks, me, ce = _moe_route(x, params["router"], cfg)
+    aux = E * torch.sum(me * ce) * cfg.router_aux_coef
+
+    xe = shard(buf, "expert", "batch", None)
+    if act == "silu":
+        dt = torch.promote_types(x.dtype, params["wg"].dtype)
+        wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
+        ye = ops.swiglu_experts(xe.to(dt), wg, wi, wo)
+    else:
+        h = F.gelu(_mm(xe, params["wg"]), approximate="tanh") * _mm(
+            xe, params["wi"])
+        h = shard(h, "expert", "batch", "ff")
+        ye = _mm(h, params["wo"])
+    ye = shard(ye, "expert", "batch", None)
+
+    if is_dtensor(x):
+        out = _moe_combine_dt(x, ye, dest, w, ranks)
+    else:
+        out = _moe_combine(ye, dest, w, ranks, x.dtype)
     if cfg.n_shared_experts:
         out = out + ffn_apply(params["shared"], x, act)
-    return out, aux
+    return shard(out, "batch", "seq", None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +762,7 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     u, z = uz[..., :di], uz[..., di:]
     u, conv_state = _causal_conv1d(u, params["conv_w"], params["conv_b"],
                                    None if state is None else state["conv"])
-    u = F.silu(u)
+    u = shard(F.silu(u), "batch", "seq", "mamba_inner")
 
     xdbc = _mm(u, params["x_proj"])
     dt = _softplus(_mm(xdbc[..., :dtr], params["dt_proj"])
@@ -689,7 +791,7 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + uf * params["D"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = _mm(y, params["out_proj"])
+    out = shard(_mm(y, params["out_proj"]), "batch", "seq", None)
     if state is None:
         return out, {"conv": conv_state.to(x.dtype), "ssm": prev.clone()}
     state["conv"].copy_(conv_state)
@@ -756,7 +858,8 @@ def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     v = heads(_mm(u, params["wv"])).float()
     gates = _mm(u, params["wif"])                            # [B,S,2H]
     logi = gates[..., :H].clamp(-12.0, 12.0).float().transpose(1, 2)
-    logf = F.logsigmoid(gates[..., H:].float() + 2.0).transpose(1, 2)
+    logf = _elementwise(F.logsigmoid,
+                        gates[..., H:].float() + 2.0).transpose(1, 2)
 
     if state is not None:
         C0, N0 = state["C"].float(), state["N"].float()
@@ -826,7 +929,7 @@ def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
     y = y + params["skip"] * c                                # learnable skip
     y = y * F.silu(z)
-    out = _mm(y, params["down"])
+    out = shard(_mm(y, params["down"]), "batch", "seq", None)
     if state is None:
         return out, {"C": Cl, "N": Nl, "conv": conv_state}
     state["C"].copy_(Cl)
@@ -927,9 +1030,28 @@ class _SLSTMScan(torch.autograd.Function):
 def slstm_scan(wx, rrec, c0, n0, h0, m0):
     """The reference's ``_slstm_scan``: wx ``[B,S,H,4dh]``, rrec
     ``[H,dh,4dh]``, states ``[B,H,dh]`` -> (hs ``[S,B,H,dh]``, (c, n, h,
-    m)), differentiable through :class:`_SLSTMScan`."""
-    hs, *final = _SLSTMScan.apply(wx, rrec, c0, n0, h0, m0)
-    return hs, tuple(final)
+    m)), differentiable through :class:`_SLSTMScan`.  On a ``DTensor``
+    wx each rank scans its own sequences (``local_map`` over the batch
+    shards; the recurrent weight replicated, its gradient partial)."""
+    if not is_dtensor(wx):
+        hs, *final = _SLSTMScan.apply(wx, rrec, c0, n0, h0, m0)
+        return hs, tuple(final)
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = wx.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    c0, n0, h0, m0 = (t if isinstance(t, DTensor) else
+                      DTensor.from_local(t, mesh, rep, run_check=False)
+                      for t in (c0, n0, h0, m0))
+    on, part, _ = _row_placements(wx)
+    b = on(0)
+    out = local_map(lambda *a: _SLSTMScan.apply(*a),
+                    out_placements=(on(1), b, b, b, b),
+                    in_placements=(b, on(None), b, b, b, b),
+                    in_grad_placements=(b, part, b, b, b, b),
+                    redistribute_inputs=True)(wx, rrec, c0, n0, h0, m0)
+    return out[0], tuple(out[1:])
 
 
 def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
@@ -958,7 +1080,7 @@ def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     up = _mm(y, params["up"])
     dff = params["down"].shape[0]
     y = F.gelu(up[..., :dff], approximate="tanh") * up[..., dff:]
-    out = _mm(y, params["down"])
+    out = shard(_mm(y, params["down"]), "batch", "seq", None)
     if state is None:
         return out, {"c": c, "n": n, "h": h, "m": m}
     for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):

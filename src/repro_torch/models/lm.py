@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel.sharding import shard
+
 from .blocks import (
     block_apply,
     block_init,
@@ -196,6 +198,7 @@ def lm_apply(
         pe = _mm(extra_embeds.to(cdtype), values["frontend_proj"].to(cdtype))
         x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
+    x = shard(x, "batch", "seq", None)
     fresh = prefill or (positions is None and caches is None)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -251,7 +254,8 @@ def lm_apply(
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
-    return logits.to(logits_dtype), caches, aux_total
+    logits = shard(logits.to(logits_dtype), "batch", "seq", "vocab")
+    return logits, caches, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +290,7 @@ def encdec_apply(
 
     if enc_out is None:
         h = _mm(frames.to(cdtype), values["frontend_proj"].to(cdtype))
+        h = shard(h, "batch", "seq", None)
         epos = torch.arange(h.shape[1], device=h.device)[None, :].expand(
             B, h.shape[1])
         for vals in _unstack(values["encoder"]):
@@ -298,6 +303,7 @@ def encdec_apply(
     fresh = positions is None and caches is None
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = shard(x, "batch", "seq", None)
     layers = zip(_unstack(values["scan"]["p0"]),
                  _unstack(values["dec_cross"]))
     for li, (vals, cross) in enumerate(layers):
@@ -313,8 +319,9 @@ def encdec_apply(
 
     x = rmsnorm(values["final_norm"], x, cfg.norm_eps)
     head = values["embed"].T if cfg.tie_embeddings else values["head"]
-    logits = _mm(x, head.to(cdtype))
-    return (logits.to(logits_dtype), caches, enc_out,
+    logits = shard(_mm(x, head.to(cdtype)).to(logits_dtype), "batch", "seq",
+                   "vocab")
+    return (logits, caches, enc_out,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -339,7 +346,9 @@ def lm_loss(values, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
         if extra is not None:
             logits = logits[:, extra.shape[1]:, :]
     tgt = batch["tokens"][:, 1:].long()
-    lgt = logits[:, :-1, :].float()
+    # under a mesh the vocab is gathered for the gather of the gold logit
+    # (the one collective the loss adds; a no-op without a mesh)
+    lgt = shard(logits[:, :-1, :].float(), "batch", "seq", None)
     mask = batch["loss_mask"][:, 1:].float()
     logz = torch.logsumexp(lgt, dim=-1)
     gold = torch.gather(lgt, -1, tgt[..., None])[..., 0]

@@ -1,13 +1,19 @@
-"""Elastic scaling arithmetic (the JAX package's ``repro.runtime.elastic``):
-the largest mesh the surviving devices support with the model axis kept,
-and the batch rescaled to it.  Building a device mesh waits for the port's
-meshes (ROADMAP A8).
+"""Elastic scaling (the JAX package's ``repro.runtime.elastic``): the
+largest mesh the surviving devices support with the model axis kept, the
+``DeviceMesh`` over the current process group for it, and the batch
+rescaled to it.
+
+On failure, the coordinator (a) drops dead hosts, (b) picks the largest
+(data', model') grid the survivors support while keeping the model axis,
+(c) restores the latest checkpoint into the new placements
+(``checkpoint.manager.reshard_to``), and (d) replays the data stream from
+the checkpoint step (data is step-indexed).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -51,10 +57,24 @@ def shrink_after_failure(current: MeshPlan, lost_devices: int) -> MeshPlan:
     return MeshPlan((data, model), ("data", "model"))
 
 
-def build_mesh(plan: MeshPlan, devices: Optional[Sequence] = None):
-    """A device mesh for ``plan`` waits for the port's meshes."""
-    raise NotImplementedError("build_mesh is not ported to repro_torch yet "
-                              "(ROADMAP A8)")
+def build_mesh(plan: MeshPlan, device_type: Optional[str] = None):
+    """``init_device_mesh`` of ``plan``'s shape and axis names over the
+    current process group (ranks 0 .. n-1 of it), on ``device_type``
+    (default: ``cuda`` for an NCCL group, else ``cpu``).  Raises when the
+    group holds fewer ranks than the plan needs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise ValueError("build_mesh needs a process group "
+                         "(torch.distributed.init_process_group)")
+    need, have = plan.n_devices, dist.get_world_size()
+    if have < need:
+        raise ValueError(f"need {need} devices, have {have}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, plan.shape,
+                            mesh_dim_names=plan.axis_names)
 
 
 def rescale_batch(global_batch: int, old_data: int, new_data: int) -> int:

@@ -7,7 +7,11 @@ largest models).  The reference's semantics are kept, odd ones included:
 leaf with more than one dim, so the stacked norm scales ``[layers, d]``
 are decayed.  :func:`adamw_update` writes the new parameters and moments
 into the given tensors (the reference's jitted step donates its buffers)
-and returns them.
+and returns them.  On ``DTensor`` parameters the moments are
+``DTensor``s placed alike, and the clipping norm's sum of squares is
+reduced over the mesh (``DTensor`` reduces a sharded leaf's sum before
+the square root); call the update under ``implicit_replication`` (the
+train step does) so its plain scalars read as replicated.
 """
 
 from __future__ import annotations
@@ -72,8 +76,9 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
     first = keypath_items(params)[0][1]
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):  # a DTensor's moments are placed as it is
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
 
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),

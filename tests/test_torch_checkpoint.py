@@ -109,8 +109,9 @@ def test_async_save_waits(tmp_path):
     assert checkpoint_steps(str(tmp_path)) == [4]
     restored, _ = mgr.restore(tree())
     np.testing.assert_array_equal(restored["a"]["w"], tree()["a"]["w"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        reshard_to(restored, None)
+    # no mesh: every leaf a plain tensor on the host
+    plain = reshard_to(restored, {"a": {"w": None}, "b": None})
+    np.testing.assert_array_equal(plain["a"]["w"].numpy(), tree()["a"]["w"])
 
 
 class FakeClock:
@@ -173,8 +174,8 @@ def test_elastic_mesh_planning():
     assert rescale_batch(256, old_data=16, new_data=14) == 224
     shrunk2 = shrink_after_failure(plan, lost_devices=256)
     assert shrunk2.shape == (16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_mesh(single)
+    with pytest.raises(ValueError, match="process group"):
+        build_mesh(single)  # no process group in this process
 
 
 # ---------------------------------------------------------------------------

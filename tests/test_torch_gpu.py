@@ -510,3 +510,87 @@ def test_launch_train_restart_replays_on_the_card(tmp_path):
                 "--fail-at", "3"]))
     assert [s for s, _ in failed["losses"]] == [0, 1, 2, 2, 3, 4]
     assert dict(failed["losses"]) == dict(plain["losses"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "jamba-v0.1-52b"])
+def test_plan_h100_on_the_card_equals_vector(arch):
+    """Cocco as the H100's planner with its GA batches on the card (B1
+    once a batch) gives the vector backend's plan on the CPU."""
+    needs_gpu()
+    from repro_torch.configs import get_config
+    from repro_torch.core.h100_adapter import plan_architecture
+    from repro_torch.kernels import finish_batch as fb
+
+    cfg = get_config(arch)
+    fb.launches = 0
+    card = plan_architecture(cfg, sample_budget=300, device="cuda")
+    assert fb.launches > 0
+    want = plan_architecture(cfg, sample_budget=300, device="cpu",
+                             eval_backend="vector")
+    for field in _chip_smoke().PLAN_FIELDS:
+        assert getattr(card, field) == getattr(want, field), field
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_train_step_is_the_unsharded_step_on_the_card():
+    """The smoke trainer on a (1, 1) mesh of DTensors under a world-1
+    NCCL group: B2-B4 through local_map, the losses and every parameter
+    bit for bit those of the run without a mesh, launches equal and as
+    the structure implies."""
+    needs_gpu()
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import keypath_items
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cs = _chip_smoke()
+    counters = cs._lm_counters()
+    base = ["--device", "cuda", "--smoke", "--steps", "2", "--seq", "32",
+            "--batch", "4", "--microbatches", "2"]
+
+    def counted(argv):
+        for mod in counters.values():
+            mod.launches = 0
+        out = train.run(train.parser().parse_args(argv))
+        return out, {lib: mod.launches for lib, mod in counters.items()}
+
+    plain, plain_launches = counted(base)
+    assert train._process_group("cuda")
+    try:
+        meshed, launches = counted(base + ["--model-parallel", "1"])
+        assert meshed["losses"] == plain["losses"]
+        want = dict(keypath_items(plain["state"]["params"]))
+        for k, v in keypath_items(meshed["state"]["params"]):
+            assert hasattr(v, "placements"), k
+            assert torch.equal(v.full_tensor(), want[k]), k
+    finally:
+        dist.destroy_process_group()
+    per_mb = cs._per_forward(get_config("tinyllama-1.1b", smoke=True),
+                             scanned_times=2)
+    assert launches == plain_launches == {
+        lib: n * 2 * 2 for lib, n in per_mb.items()}
+
+
+@pytest.mark.gpu
+def test_int8_error_feedback_on_the_card_equals_the_cpu():
+    """q, the scales, the residual and the dequantized gradient of int8
+    error-feedback compression bit for bit the CPU's, over tensors of up
+    to 2**24 elements (where a quotient one bit off flips some rounding)."""
+    needs_gpu()
+    from repro_torch.parallel import collectives as coll
+
+    g = torch.Generator().manual_seed(0)
+    host = {f"w{n}": torch.randn((n,), generator=g) * 3.0
+            for n in (1, 1000, 1 << 20, 1 << 24)}
+    card = {k: v.cuda() for k, v in host.items()}
+    for _ in range(2):
+        q, s, ef = coll.compress_int8_ef(card, coll.ef_init(card))
+        hq, hs, hef = coll.compress_int8_ef(host, coll.ef_init(host))
+        for k in host:
+            assert torch.equal(q[k].cpu(), hq[k]), k
+            assert torch.equal(s[k].cpu(), hs[k]), k
+            assert torch.equal(ef.residual[k].cpu(), hef.residual[k]), k
+        card = {k: v * 1.7 for k, v in card.items()}
+        host = {k: v * 1.7 for k, v in host.items()}

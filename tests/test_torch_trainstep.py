@@ -282,9 +282,15 @@ def test_launch_train_cli(tmp_path, capsys):
                             "--seq", "16", "--batch", "2"])
     assert rc == 0
     assert capsys.readouterr().out.splitlines()[-1].startswith("done: loss ")
+    # a (1, 1) mesh in a world of one: the DTensor route, same losses
+    assert launch_train.main(["--device", "cpu", "--smoke", "--steps", "3",
+                              "--seq", "16", "--batch", "2",
+                              "--model-parallel", "2"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1].startswith("done: loss ")
     assert launch_train.main(["--device", "cpu", "--smoke",
-                              "--model-parallel", "2"]) == 2
-    assert "ROADMAP A8" in capsys.readouterr().err
+                              "--model-parallel", "0"]) == 2
+    assert "model-parallel" in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert launch_train.main(["--smoke"]) == 2
         assert capsys.readouterr().err.startswith("error:")
