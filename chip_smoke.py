@@ -60,7 +60,11 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
 * the sharded train step: ``launch.train --model-parallel 1`` on a (1, 1)
   mesh of ``DTensor``s under a one-rank NCCL group, the kernels through
   ``local_map``, bit for bit the same 3 steps without a mesh, and int8
-  error-feedback compression of its gradients equal to the CPU's.
+  error-feedback compression of its gradients equal to the CPU's;
+* the dry run: ``python -m repro_torch.launch.dryrun`` on fake 256- and
+  512-rank worlds with B2-B4 in the trace as torch ops, and tinyllama's
+  train step traced on fake and on real card tensors on a (1, 1) mesh,
+  the two counts equal and the real launches equal to the traced calls.
 
 Last it times every kernel beside its plain version, its bound and the
 library call where one computes the same function (and each backward
@@ -1552,18 +1556,18 @@ def phase_serve_whisper(device: dict) -> dict:
     counters = _lm_counters()
     for mod in counters.values():
         mod.launches = 0
-    calls, inner = [], ops.flash_attention
+    calls, inner = [], ops.flash_attention_op
 
-    def recording(q, k, v, causal=True, window=0, scale=None):
+    def recording(q, k, v, causal, window, scale):
         calls.append((tuple(q.shape), causal))
-        return inner(q, k, v, causal=causal, window=window, scale=scale)
+        return inner(q, k, v, causal, window, scale)
 
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention = recording
+    ops.flash_attention_op = recording
     try:
         first, first_st = _transcribe(eng, frames)
     finally:
-        ops.flash_attention = inner
+        ops.flash_attention_op = inner
     launches = {lib: mod.launches for lib, mod in counters.items()}
     expected = _whisper_launches(cfg, WHISPER_NEW_TOKENS)
     warm, warm_st = _transcribe(eng, frames)
@@ -2152,6 +2156,195 @@ def phase_sharded(device: dict) -> dict:
     return out
 
 
+# -- the dry run --------------------------------------------------------------
+
+# the dry-run cells the phase traces through the CLI, at its default
+# ``--device cuda``: (arch, shape, mesh)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                ("xlstm-350m", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 300  # seconds, each subprocess
+# the torch ops of each LM kernel library, as a row's kernel_calls names them
+DRYRUN_OPS = {"rmsnorm": ("fused_rmsnorm",),
+              "fused_ffn": ("fused_swiglu", "fused_swiglu_with_hidden"),
+              "flash_attention": ("flash_attention",)}
+
+
+def _ops_by_lib(calls: dict) -> dict:
+    return {lib: sum(calls.get(op, 0) for op in ops)
+            for lib, ops in DRYRUN_OPS.items()}
+
+
+def _dryrun_card_check() -> None:
+    """Run in a child process by :func:`phase_dryrun`: tinyllama-1.1b's
+    train step at the ``sharded`` phase's batch (:data:`SHARDED_ARGS`) on
+    a world of 1 (NCCL) and a (1, 1) mesh, traced by the dry run's
+    ``trace_step`` once on fake ``cuda`` tensors and once on real ones;
+    then three more real steps, uninstrumented and timed.  Prints one JSON
+    line: both passes' counts, the real pass's kernel launches (the
+    kernels' own counters, reset just before it), the traced peaks beside
+    ``torch.cuda.max_memory_allocated`` and the roofline's bound beside
+    the measured step."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, roofline, train
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.runtime import build_mesh, plan_mesh
+
+    args = train.parser().parse_args(SHARDED_ARGS)
+    cfg = get_config(args.arch)
+    shape = ShapeSpec("card", args.seq, args.batch, "train")
+    train._process_group(CARD)
+    mesh = build_mesh(plan_mesh(1, 1), CARD)
+    counters = _lm_counters()
+
+    def counts(c):
+        return {"flops": c.flops, "bytes": c.bytes,
+                "kernel_calls": c.kernel_calls, "coll_counts": c.coll_counts}
+
+    try:
+        with mesh_context(mesh, rules_for(cfg, "train")):
+            with FakeTensorMode():
+                step, a = dryrun.cell_step(cfg, shape, mesh, CARD,
+                                           args.microbatches)
+                t0 = time.perf_counter()
+                fake, fake_peak = dryrun.trace_step(step, a)
+                fake_s = time.perf_counter() - t0
+                del step, a
+            gen = torch.Generator(device=CARD).manual_seed(args.seed)
+            step, a = dryrun.cell_step(cfg, shape, mesh, CARD,
+                                       args.microbatches, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for mod in counters.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            real, real_peak = dryrun.trace_step(step, a)
+            torch.cuda.synchronize()
+            real_s = time.perf_counter() - t0
+            launches = {lib: mod.launches for lib, mod in counters.items()}
+            max_alloc = torch.cuda.max_memory_allocated()
+            step_s = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(*a)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    rep = roofline.analyze(
+        cfg.name, "card", "1x1", 1, real,
+        roofline.model_flops_for(cfg, "train", args.seq, args.batch),
+        bytes_per_device=float(real_peak))
+    emit({"fake": counts(fake), "real": counts(real), "launches": launches,
+          "fake_trace_s": fake_s, "real_traced_step_s": real_s,
+          "step_s": step_s, "fake_peak_bytes": fake_peak,
+          "real_traced_peak_bytes": real_peak,
+          "max_memory_allocated": max_alloc,
+          "t_compute_ms": rep.t_compute * 1e3,
+          "t_memory_ms": rep.t_memory * 1e3,
+          "t_collective_ms": rep.t_collective * 1e3,
+          "bound_ms": max(rep.t_compute, rep.t_memory,
+                          rep.t_collective) * 1e3,
+          "bottleneck": rep.bottleneck})
+
+
+def phase_dryrun(device: dict) -> dict:
+    """The dry run on the card's machine: ``python -m
+    repro_torch.launch.dryrun`` at its default ``--device cuda`` for
+    :data:`DRYRUN_CELLS` (each row on its fake world of 256 or 512 ranks,
+    its bottleneck one of the three, tinyllama's kernel calls naming
+    B2-B4), and :func:`_dryrun_card_check` beside them, all three in
+    subprocesses at once: the fake and the real pass of the same step
+    count the same FLOPs, kernel calls and collectives, and the real
+    pass's launches equal its kernel calls."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out_dir = WORK_DIR / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    procs = {}
+    t0 = time.perf_counter()
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    procs["card"] = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._dryrun_card_check()"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    done, failed = {}, []
+    for key, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            failed.append(f"{key}: no end within {DRYRUN_TIMEOUT} s")
+        done[key] = (proc.returncode, stdout, stderr)
+    seconds = time.perf_counter() - t0
+    rows, cells = {}, []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rc, stdout, stderr = done[(arch, shape, mesh)]
+        multi = mesh == "multi"
+        name = f"{arch}__{shape}__{'pod2x16x16' if multi else 'pod16x16'}"
+        path = out_dir / f"{name}.json"
+        row = json.loads(path.read_text()) if path.is_file() else {}
+        rows[name] = row
+        cells.append({k: row.get(k) for k in (
+            "arch", "shape", "mesh", "devices", "lower_s", "t_compute_ms",
+            "t_memory_ms", "t_collective_ms", "bottleneck", "hlo_gflops",
+            "hlo_gbytes", "coll_gbytes", "coll_counts", "kernel_calls",
+            "peak_bytes", "counted_at")})
+        if rc != 0 or "error" in row or not row:
+            failed.append(f"{name}: exit {rc}: {row.get('error')} "
+                          f"{stderr[-2000:]}")
+            continue
+        if row["devices"] != (512 if multi else 256):
+            failed.append(f"{name}: {row['devices']} devices")
+        if row["bottleneck"] not in ("compute", "memory", "collective"):
+            failed.append(f"{name}: bottleneck {row['bottleneck']}")
+        if row.get("counted_at") != "per_device":
+            failed.append(f"{name}: counted_at {row.get('counted_at')}")
+    tiny = rows.get("tinyllama-1.1b__train_4k__pod16x16", {})
+    if "kernel_calls" in tiny and not all(
+            _ops_by_lib(tiny["kernel_calls"]).values()):
+        failed.append(f"tinyllama train_4k: kernel calls "
+                      f"{tiny['kernel_calls']} miss one of B2-B4")
+    rc, stdout, stderr = done["card"]
+    card = {}
+    if rc != 0:
+        failed.append(f"card check: exit {rc}: {stderr[-3000:]}")
+    else:
+        card = json.loads(stdout.strip().splitlines()[-1])
+        fake, real = card["fake"], card["real"]
+        for key in ("flops", "kernel_calls", "coll_counts"):
+            if fake[key] != real[key]:
+                failed.append(f"card check: {key} fake {fake[key]} != real "
+                              f"{real[key]}")
+        if card["launches"] != _ops_by_lib(real["kernel_calls"]):
+            failed.append(f"card check: launches {card['launches']} != "
+                          f"kernel calls {real['kernel_calls']}")
+    out = {"phase": "dryrun", "device": device["nvidia_smi"],
+           "seconds": seconds, "cells": cells,
+           "card_check": card,
+           "launches": card.get("launches", {})}
+    emit(out)
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
+    return out
+
+
 # -- LM kernels ---------------------------------------------------------------
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -2205,7 +2398,8 @@ def _mla_attn_inputs(b, h, s, dqk, dv, dtype, seed):
 
 def _lm_calls():
     """(kernel library, case, kernel call, plain call) for every case of
-    the kernel-against-plain phase, in both dtypes."""
+    the kernel-against-plain phase, in both dtypes; each kernel called as
+    its torch op (``repro_torch::...``), as the models call it."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2219,12 +2413,13 @@ def _lm_calls():
                {"b": b, "h": h, "hkv": h, "s": s_len, "d": args[0].shape[-1],
                 "mla": {"qk": dqk, "v": dv}, "scale": scale, "causal": True,
                 "window": 0}, dtype,
-               lambda a=args[:3], sc=scale: fa.flash_attention(*a, scale=sc),
+               lambda a=args[:3], sc=scale: fa.flash_attention_op(
+                   *a, True, 0, sc),
                lambda a=args[:3], sc=scale: fa.attention_plain(*a, scale=sc))
     for i, (m, d, f) in enumerate(DEEPSEEK_FFN_CASES):
         args = _ffn_inputs(m, d, f, torch.bfloat16, 100 + 4 * i)
         yield ("fused_ffn", {"m": m, "d": d, "f": f}, torch.bfloat16,
-               lambda a=args: ff.fused_swiglu(*a),
+               lambda a=args: ff.fused_swiglu_op(*a),
                lambda a=args: ff.swiglu_plain(*a))
     for dtype in (torch.bfloat16, torch.float32):
         for i, (m, d, off) in enumerate(RMS_CASES):
@@ -2234,14 +2429,14 @@ def _lm_calls():
             yield ("rmsnorm", {"m": m, "d": d, "offset": off,
                                "route": "vector" if vec else "scalar"},
                    dtype,
-                   lambda a=args: rn.fused_rmsnorm(*a),
+                   lambda a=args: rn.fused_rmsnorm_op(*a, 1e-5),
                    lambda a=args: rn.rmsnorm_plain(*a))
         ffn_cases = FFN_CASES + (JAMBA_FFN_CASES if dtype == torch.bfloat16
                                  else ())
         for i, (m, d, f) in enumerate(ffn_cases):
             args = _ffn_inputs(m, d, f, dtype, 20 + 4 * i)
             yield ("fused_ffn", {"m": m, "d": d, "f": f}, dtype,
-                   lambda a=args: ff.fused_swiglu(*a),
+                   lambda a=args: ff.fused_swiglu_op(*a),
                    lambda a=args: ff.swiglu_plain(*a))
         for i, (b, h, hkv, s, d, causal, window) in enumerate(
                 ATTN_CASES + ATTN_SWEEP):
@@ -2250,7 +2445,8 @@ def _lm_calls():
             yield ("flash_attention",
                    {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, **kw,
                     "sweep": i >= len(ATTN_CASES)}, dtype,
-                   lambda a=args, kw=kw: fa.flash_attention(*a, **kw),
+                   lambda a=args, kw=kw: fa.flash_attention_op(
+                       *a, kw["causal"], kw["window"], None),
                    lambda a=args, kw=kw: fa.attention_plain(*a, **kw))
 
 
@@ -2809,11 +3005,11 @@ PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
           "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
           "serve_whisper", "whisper_vs_cpu", "train", "train_vs_cpu",
-          "plan_h100", "sharded", "lm_timing")
+          "plan_h100", "sharded", "dryrun", "lm_timing")
 # the phases that run a model at full width, whose launches the kernels
 # line sums
 MAIN_PATHS = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm",
-              "serve_whisper", "train", "sharded")
+              "serve_whisper", "train", "sharded", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -2893,6 +3089,8 @@ def main(argv=None) -> int:
         b1_launches["plan_h100"] = phase_plan_h100()["kernel_launches"]
     if run("sharded"):
         served["sharded"] = phase_sharded(device)
+    if run("dryrun"):
+        served["dryrun"] = phase_dryrun(device)
     lm_rows = phase_lm_timing() if run("lm_timing") else None
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)

@@ -22,7 +22,11 @@ block).
   only), the same for ``F.rms_norm`` on the same tensors, the time of the
   C entry point called through ``ctypes`` with the same arguments and
   ``m = 0`` (it returns at once: the least a ``ctypes`` call of that
-  argument list costs), and the ``cProfile`` breakdown of a call;
+  argument list costs), the host time of the same call through
+  ``ops.rmsnorm`` (the models' route) and, where the tree registers it,
+  through the kernel's torch op (``op_host_us``: the dispatcher's cost is
+  its difference from ``host_us``), and the ``cProfile`` breakdowns of a
+  call of the wrapper and of ``ops.rmsnorm``;
 * ``fused_ffn``: one B3 call at M 8, d 2048, f 5632 in bf16 (tinyllama's
   decode shape): events and host time a call beside the composite of
   three ``torch.matmul``s and ``F.silu(g) * u``.  Its ~47 us on the card
@@ -148,7 +152,7 @@ def run_rmsnorm(reps: int) -> None:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import rmsnorm as rn
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -174,16 +178,25 @@ def run_rmsnorm(reps: int) -> None:
     def library():
         return F.rms_norm(x, (2048,), s, 1e-5)
 
+    def wrapper():
+        return ops.rmsnorm(x, s)
+
+    timers = {
+        "events_ms": (events_ms, kernel),
+        "library_events_ms": (events_ms, library),
+        "host_us": (host_us, kernel),
+        "library_host_us": (host_us, library),
+        "ops_host_us": (host_us, wrapper),
+        "noop_ctypes_us": (lambda f, r: host_us(f, r, sync=False),
+                           call_noop)}
+    op = getattr(rn, "fused_rmsnorm_op", None)
+    if op is not None:  # the kernel as a torch op (repro_torch::...)
+        timers["op_host_us"] = (host_us, lambda: op(x, s, 1e-5))
     emit({"what": "rmsnorm", "m": 8, "d": 2048, "dtype": "bfloat16",
-          "blocks": BLOCKS, **in_turns({
-              "events_ms": (events_ms, kernel),
-              "library_events_ms": (events_ms, library),
-              "host_us": (host_us, kernel),
-              "library_host_us": (host_us, library),
-              "noop_ctypes_us": (lambda f, r: host_us(f, r, sync=False),
-                                 call_noop)}, reps),
+          "blocks": BLOCKS, **in_turns(timers, reps),
           "noop_argc": len(entry.argtypes),
-          "profile_us": profile_us(kernel, reps)})
+          "profile_us": profile_us(kernel, reps),
+          "ops_profile_us": profile_us(wrapper, reps)})
 
 
 def run_ffn(reps: int) -> None:

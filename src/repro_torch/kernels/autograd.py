@@ -1,7 +1,8 @@
 """B2, B3 and B4 under autograd: one ``torch.autograd.Function`` a kernel.
 
-The forward is the kernel on a CUDA tensor and its plain torch version on
-a CPU tensor, as :mod:`repro_torch.kernels.ops` dispatches; the backward is
+The forward is the kernel's torch op on a CUDA tensor (real or fake) and
+its plain torch version on a CPU tensor, as
+:mod:`repro_torch.kernels.ops` dispatches; the backward is
 an explicit gradient formula in torch ops, the same on both devices (the
 JAX package has no backward kernel; it takes its gradients from plain
 jnp).  ``ops`` sends a call here only while grad is enabled and an input
@@ -131,8 +132,7 @@ class Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         if q.is_cuda:
-            o = _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+            o = _fa.flash_attention_op(q, k, v, causal, window, scale)
         else:
             o = _fa.attention_plain(q, k, v, causal=causal, window=window,
                                     scale=scale)
@@ -153,7 +153,7 @@ class SwiGLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wg, wi, wo):
-        fn = (_ff.fused_swiglu_with_hidden if x.is_cuda
+        fn = (_ff.fused_swiglu_with_hidden_op if x.is_cuda
               else _ff.swiglu_plain_with_hidden)
         out, h = fn(x, wg, wi, wo)
         ctx.save_for_backward(x, wg, wi, wo, h)
@@ -170,7 +170,7 @@ class RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps):
         if x.is_cuda:
-            out = _rn.fused_rmsnorm(x, scale, eps)
+            out = _rn.fused_rmsnorm_op(x, scale, eps)
         else:
             out = _rn.rmsnorm_plain(x, scale, eps)
         ctx.save_for_backward(x, scale)

@@ -7,6 +7,14 @@ head ``h`` uses kv head ``h // (H // Hkv)``) and takes any sequence length.
 It takes CUDA tensors only.  :func:`attention_plain` is its plain torch
 version, on any device.  :func:`repro_torch.kernels.ops.attention` picks
 between them by the tensor's device.
+
+The kernel is also the torch op ``repro_torch::flash_attention``
+(:data:`flash_attention_op`): its CUDA implementation is
+:func:`flash_attention`, its fake implementation gives the output's
+shape, dtype and device and computes nothing, so a fake ``cuda`` tensor
+traces through it; it has no CPU implementation.  Its FLOP formula for
+``torch.utils.flop_counter`` counts the products over the live pairs,
+``4 · B · H · pairs · d`` (:func:`live_pairs`).
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ import math
 from typing import Optional
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import attention_ref
@@ -90,3 +100,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale, code)
     launches += 1
     return out
+
+
+def live_pairs(s_len: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs of one head that the masks leave live over
+    ``s_len`` positions: key ``j`` for query ``i`` where ``j <= i`` if
+    ``causal`` and ``j > i - window`` if ``window``."""
+    n, w = s_len, window
+    if not causal:
+        return n * n if not w or n < w else n * n - (n - w) * (n - w + 1) // 2
+    if not w or n <= w:
+        return n * (n + 1) // 2
+    return w * (w + 1) // 2 + (n - w) * w
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float? scale) -> Tensor")
+_LIB.impl("flash_attention", flash_attention, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_attention_fake(q, k, v, causal, window, scale):
+    _check_shapes("flash_attention", q, k, v)
+    return torch.empty_like(q)
+
+
+#: the kernel as a torch op: ``flash_attention_op(q, k, v, causal, window,
+#: scale)``, every argument positional
+flash_attention_op = torch.ops.repro_torch.flash_attention.default
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                           scale, *args, out_shape=None, **kwargs) -> int:
+    B, H, S, d = q_shape
+    return 4 * B * H * live_pairs(S, causal, window) * d

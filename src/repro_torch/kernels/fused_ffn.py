@@ -8,11 +8,20 @@ tiles chosen by the number of rows.  It takes CUDA tensors only.
 split (:func:`swiglu_hidden_plain`, then the product with ``Wo``), on any
 device.  :func:`repro_torch.kernels.ops.swiglu` picks between them by the
 tensor's device.
+
+The kernels are also the torch ops ``repro_torch::fused_swiglu`` and
+``repro_torch::fused_swiglu_with_hidden`` (:data:`fused_swiglu_op`,
+:data:`fused_swiglu_with_hidden_op`): their CUDA implementations are
+:func:`fused_swiglu` and :func:`fused_swiglu_with_hidden`, their fake
+implementations give the outputs' shapes, dtype and device and compute
+nothing; they have no CPU implementation.  Their FLOP formula counts
+the three products, ``6 · M · d · f``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -45,6 +54,20 @@ def swiglu_plain(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     return swiglu_plain_with_hidden(x, wg, wi, wo)[0]
 
 
+def _check_shapes(x, wg, wi, wo) -> tuple:
+    """(M, d, f) of a SwiGLU's operands; raises ``ValueError`` if they do
+    not fit together."""
+    if x.dim() != 2:
+        raise ValueError(f"fused_swiglu expects x [M, d], got {list(x.shape)}")
+    m, d = x.shape
+    f = wg.shape[-1] if wg.dim() == 2 else -1
+    if wg.shape != (d, f) or wi.shape != (d, f) or wo.shape != (f, d):
+        raise ValueError(
+            f"fused_swiglu expects wg, wi [d, f] and wo [f, d] for d = {d}, "
+            f"got {list(wg.shape)}, {list(wi.shape)}, {list(wo.shape)}")
+    return m, d, f
+
+
 def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                  wo: torch.Tensor) -> torch.Tensor:
     """The CUDA kernels over ``x`` ``[M, d]``, ``wg``/``wi`` ``[d, f]`` and
@@ -60,14 +83,7 @@ def fused_swiglu_with_hidden(x: torch.Tensor, wg: torch.Tensor,
     """:func:`fused_swiglu` and the hidden activation ``[M, f]`` its first
     kernel wrote (the backward's ``dWo = Hᵀ dY`` reads it)."""
     global launches
-    if x.dim() != 2:
-        raise ValueError(f"fused_swiglu expects x [M, d], got {list(x.shape)}")
-    m, d = x.shape
-    f = wg.shape[-1] if wg.dim() == 2 else -1
-    if wg.shape != (d, f) or wi.shape != (d, f) or wo.shape != (f, d):
-        raise ValueError(
-            f"fused_swiglu expects wg, wi [d, f] and wo [f, d] for d = {d}, "
-            f"got {list(wg.shape)}, {list(wi.shape)}, {list(wo.shape)}")
+    m, d, f = _check_shapes(x, wg, wi, wo)
     index = _build.check_cuda_tensors("fused_swiglu", x, wg, wi, wo)
     code = _build.dtype_code("fused_swiglu", x)
     if not wg.dtype == wi.dtype == wo.dtype == x.dtype:
@@ -81,3 +97,39 @@ def fused_swiglu_with_hidden(x: torch.Tensor, wg: torch.Tensor,
                   h.data_ptr(), out.data_ptr(), m, d, f, code)
     launches += 1
     return out, h
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("fused_swiglu(Tensor x, Tensor wg, Tensor wi, Tensor wo) "
+            "-> Tensor")
+_LIB.define("fused_swiglu_with_hidden(Tensor x, Tensor wg, Tensor wi, "
+            "Tensor wo) -> (Tensor, Tensor)")
+_LIB.impl("fused_swiglu", fused_swiglu, "CUDA")
+_LIB.impl("fused_swiglu_with_hidden", fused_swiglu_with_hidden, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::fused_swiglu", lib=_LIB)
+def _fused_swiglu_fake(x, wg, wi, wo):
+    _check_shapes(x, wg, wi, wo)
+    return torch.empty_like(x)
+
+
+@torch.library.register_fake("repro_torch::fused_swiglu_with_hidden",
+                             lib=_LIB)
+def _fused_swiglu_with_hidden_fake(x, wg, wi, wo):
+    m, _, f = _check_shapes(x, wg, wi, wo)
+    return torch.empty_like(x), x.new_empty((m, f))
+
+
+#: the kernels as torch ops, called as ``fused_swiglu_op(x, wg, wi, wo)``
+fused_swiglu_op = torch.ops.repro_torch.fused_swiglu.default
+fused_swiglu_with_hidden_op = \
+    torch.ops.repro_torch.fused_swiglu_with_hidden.default
+
+
+@register_flop_formula([torch.ops.repro_torch.fused_swiglu,
+                        torch.ops.repro_torch.fused_swiglu_with_hidden])
+def _fused_swiglu_flops(x_shape, wg_shape, *args, out_shape=None,
+                        **kwargs) -> int:
+    m, d = x_shape
+    return 6 * m * d * wg_shape[1]

@@ -1,14 +1,17 @@
 """Public wrappers of the LM kernels, dispatching on the tensor's device.
 
-A CUDA tensor goes through the hand-written kernel (``fused_rmsnorm``,
-``fused_swiglu``, ``flash_attention``), which launches or raises; a CPU
-tensor goes through the kernel's plain torch version.  Nothing falls back
-from one to the other.  While grad is enabled and an input requires grad,
-the call goes through the kernel's ``torch.autograd.Function``
-(:mod:`repro_torch.kernels.autograd`: the same forward, an explicit
-backward); otherwise straight to the kernel, at no extra host cost.  (A
-kernel wrapper called directly on such inputs raises: its output would
-carry no ``grad_fn`` and cut the graph.)  Unlike the JAX package's
+A CUDA tensor goes through the hand-written kernel as a torch op
+(``repro_torch::fused_rmsnorm``, ``fused_swiglu``, ``flash_attention``),
+which launches or raises; a CPU tensor goes through the kernel's plain
+torch version.  Nothing falls back from one to the other.  A fake
+``cuda`` tensor (``FakeTensorMode``, as the dry run traces a step) takes
+the same op, where the dispatcher sends it to the op's fake
+implementation: no branch here tells real from fake.  While grad is
+enabled and an input requires grad, the call goes through the kernel's
+``torch.autograd.Function`` (:mod:`repro_torch.kernels.autograd`: the
+same forward, an explicit backward); otherwise straight to the kernel's
+op.  (A kernel wrapper called directly on such inputs raises: its output
+would carry no ``grad_fn`` and cut the graph.)  Unlike the JAX package's
 wrappers these take no block sizes (each kernel picks its own tiles) and
 no ``use_kernel`` switch (the ``*_plain`` functions are that switch, on
 any device).
@@ -42,9 +45,9 @@ import torch
 from repro_torch.parallel.sharding import is_dtensor
 
 from . import autograd
-from .flash_attention import attention_plain, flash_attention
-from .fused_ffn import fused_swiglu, swiglu_plain
-from .rmsnorm import fused_rmsnorm, rmsnorm_plain
+from .flash_attention import attention_plain, flash_attention_op
+from .fused_ffn import fused_swiglu_op, swiglu_plain
+from .rmsnorm import fused_rmsnorm_op, rmsnorm_plain
 
 
 def _evenly(t, dim: int, mesh, i: int, placement):
@@ -169,8 +172,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _needs_grad(q, k, v):
         return autograd.Attention.apply(q, k, v, causal, window, scale)
     if cuda:
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+        return flash_attention_op(q, k, v, causal, window, scale)
     return attention_plain(q, k, v, causal=causal, window=window,
                            scale=scale)
 
@@ -184,7 +186,7 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     if _needs_grad(x, wg, wi, wo):
         return autograd.SwiGLU.apply(x, wg, wi, wo)
     if cuda:
-        return fused_swiglu(x, wg, wi, wo)
+        return fused_swiglu_op(x, wg, wi, wo)
     return swiglu_plain(x, wg, wi, wo)
 
 
@@ -197,7 +199,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if _needs_grad(x, scale):
         return autograd.RMSNorm.apply(x, scale, eps)
     if cuda:
-        return fused_rmsnorm(x, scale, eps)
+        return fused_rmsnorm_op(x, scale, eps)
     return rmsnorm_plain(x, scale, eps)
 
 

@@ -102,16 +102,20 @@ def _zeros(shape, axes, dtype=torch.float32, device=None) -> Param:
     return Param(torch.zeros(shape, dtype=dtype, device=device), axes)
 
 
-def _elementwise(fn: Callable, x: torch.Tensor) -> torch.Tensor:
-    """An elementwise ``fn`` of ``x``; of a ``DTensor`` through
-    ``local_map`` on its own placements (a pending sum reduced first), for
-    an op whose gradient ``DTensor`` has no sharding rule for."""
+def _elementwise(fn: Callable, x: torch.Tensor, along=()) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` elementwise but along the tensor dims
+    ``along``; of a ``DTensor`` through ``local_map`` on each rank's own
+    shard, with its placements (a pending sum reduced first, the ``along``
+    dims whole), for an op (or its gradient) that ``DTensor`` has no
+    sharding rule for, in some torch release."""
     if not is_dtensor(x):
         return fn(x)
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
-    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    pl = tuple(Replicate() if p.is_partial() or (p.is_shard()
+                                                 and p.dim in along) else p
+               for p in x.placements)
     return local_map(fn, out_placements=(pl,), in_placements=(pl,),
                      in_grad_placements=(pl,), redistribute_inputs=True)(x)
 
@@ -120,6 +124,36 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the dtype the two promote to, as jnp does."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
+
+
+def _pad(x: torch.Tensor, pad) -> torch.Tensor:
+    """``F.pad(x, pad)`` with zeros, on each rank's own shard of a
+    ``DTensor``: ``DTensor``'s own pad fails to plan its redistribution on
+    a 2-D mesh in torch 2.11."""
+    return _elementwise(lambda t: F.pad(t, pad), x,
+                        along={x.dim() - 1 - i // 2 for i in range(len(pad))})
+
+
+def _mm_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`_mm` of ``x`` ``[..., k]`` and ``w`` ``[k, n]``; of a
+    ``DTensor`` x on each rank's own rows (``local_map``, w replicated):
+    its leading dims keep their placements, where a product over them
+    flattened would take a strided shard of two sharded dims (as a cache
+    sharded by batch and by sequence is), which a trace on fake tensors
+    cannot redistribute."""
+    if not is_dtensor(x):
+        return _mm(x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    last = x.dim() - 1
+    pl = tuple(Replicate() if p.is_partial() or p == Shard(last) else p
+               for p in x.placements)
+    rep = tuple(Replicate() for _ in pl)
+    wgrad = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
+    return local_map(_mm, out_placements=(pl,), in_placements=(pl, rep),
+                     in_grad_placements=(pl, wgrad),
+                     redistribute_inputs=True)(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +269,7 @@ def _attend_chunked(q, k, v, qpos, kpos, causal: bool, window: int,
             s = torch.einsum("bqkgd,btkd->bqkgt", qi, kj) * scale
             if softcap:
                 s = softcap * torch.tanh(s / softcap)
-            mask = (kpj >= 0)[None, None, :].expand(B, cq, ck)
+            mask = (kpj >= 0)[None, None, :].expand(B, cq, -1)
             if causal:
                 mask = mask & (kpj[None, None, :] <= qpi[:, :, None])
             if window:
@@ -264,12 +298,37 @@ def _dispatch_attend(q, k, v, qpos, kpos, causal, window, softcap,
         return _attend_chunked(q, k, v, qpos, kpos, causal, window, softcap,
                                cq, ck, scale)
     kp = kpos[None, :]
-    mask = (kp >= 0)[:, None, :].expand(1, S, T)
+    # -1, not T: under a mesh the keys may be sharded (a cache's seq_kv),
+    # and a DTensor expands a sharded dim only to its own size
+    mask = (kp >= 0)[:, None, :].expand(1, S, -1)
     if causal:
         mask = mask & (kp[:, None, :] <= qpos[..., None])
     if window:
         mask = mask & (kp[:, None, :] > qpos[..., None] - window)
+    # [B, S, T] placed as the keys are (a cache's seq_kv)
+    mask = shard(mask, "batch", None, "seq_kv")
     return _attend(q, k, v, mask, softcap, scale)
+
+
+def _ring_write(buf, dim: int, idx, src) -> None:
+    """``buf.index_copy_(dim, idx, src)`` for the contiguous slots ``idx``.
+    On a ``DTensor`` (a cache under a mesh, sharded along ``dim`` by its
+    ``seq_kv``), where ``index_copy_`` would re-place the buffer, the same
+    write as a copy of the whole buffer when ``src`` fills it, or as a
+    select over the slots when it holds one position."""
+    if not is_dtensor(buf):
+        buf.index_copy_(dim, idx, src)
+        return
+    n = src.shape[dim]
+    if n == buf.shape[dim]:  # idx is 0..T-1
+        buf.copy_(src)
+    elif n == 1:
+        hit = torch.arange(buf.shape[dim], device=idx.device) == idx
+        hit = hit.view([-1 if d == dim else 1 for d in range(buf.dim())])
+        buf.copy_(torch.where(hit, src, buf))
+    else:
+        raise ValueError(f"a cache under a mesh takes a write of one "
+                         f"position or of all {buf.shape[dim]}, not {n}")
 
 
 def _write_cache(cache: Dict, k, v, positions):
@@ -285,9 +344,9 @@ def _write_cache(cache: Dict, k, v, positions):
         k_w, v_w, pos_w = k, v, positions[0]
         start = torch.clamp(cache["len"].long() % T, max=T - S)
     idx = start + torch.arange(k_w.shape[1], device=k.device)
-    cache["k"].index_copy_(1, idx, k_w.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, idx, v_w.to(cache["v"].dtype))
-    cache["pos"].index_copy_(0, idx, pos_w.to(torch.int32))
+    _ring_write(cache["k"], 1, idx, k_w.to(cache["k"].dtype))
+    _ring_write(cache["v"], 1, idx, v_w.to(cache["v"].dtype))
+    _ring_write(cache["pos"], 0, idx, pos_w.to(torch.int32))
     cache["len"].add_(S)
 
 
@@ -326,8 +385,11 @@ def attention_apply(params, cfg: ModelConfig, x, positions,
     if kv_source is None:  # self-attention: rotary on q & k
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    q = shard(q.view(B, S, kh, g, dh), "batch", "seq", "kv_heads", None,
-              None).view(B, S, h, dh)
+    # the heads take the kv heads' placements, in whole groups of g (the
+    # reference splits them into (kv head, group) to place them; a model
+    # axis that shards the heads but not the kv heads cannot split them
+    # in a view, forward or backward, under DTensor)
+    q = shard(q, "batch", "seq", "kv_heads", None)
     k = shard(k, "batch", "seq_kv", "kv_heads", None)
     v = shard(v, "batch", "seq_kv", "kv_heads", None)
 
@@ -447,8 +509,9 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         T = cache["ckv"].shape[1]
         start = torch.clamp(cache["len"].long(), max=T - S)
         idx = start + torch.arange(S, device=x.device)
-        cache["ckv"].index_copy_(1, idx, ckv.to(cache["ckv"].dtype))
-        cache["k_rope"].index_copy_(1, idx, k_rope.to(cache["k_rope"].dtype))
+        _ring_write(cache["ckv"], 1, idx, ckv.to(cache["ckv"].dtype))
+        _ring_write(cache["k_rope"], 1, idx,
+                    k_rope.to(cache["k_rope"].dtype))
         cache["len"].add_(S)
     wukv = params["wukv"].reshape(kvr, h * (dh + dv))
     scale = 1.0 / math.sqrt(dh + r)
@@ -464,7 +527,7 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
 
         def padded(t, seq):  # [B, S, h, w] -> [B, h, S, width]
             t = shard(t, "batch", seq, "heads", None)
-            return F.pad(t.to(dt), (0, width - t.shape[-1])).transpose(1, 2)
+            return _pad(t.to(dt), (0, width - t.shape[-1])).transpose(1, 2)
 
         out = ops.attention(padded(q, "seq"), padded(kf, "seq_kv"),
                             padded(kv[..., dh:], "seq_kv"), causal=True,
@@ -474,11 +537,14 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         if cache is not None:
             ckv, k_rope = cache["ckv"], cache["k_rope"]
         T = ckv.shape[1]
-        kv = _mm(ckv, wukv).view(B, T, h, dh + dv)
+        kv = _mm_rows(ckv, wukv).view(B, T, h, dh + dv)
         k_nope, v = kv[..., :dh], kv[..., dh:]
         dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
         kf = torch.cat([k_nope.to(dt), k_rope.to(dt).expand(B, T, h, r)],
                        dim=-1)
+        # the heads whole, as the keys expanded from the latent cache hold
+        # them (on a mesh the cache's sequence takes the model axis)
+        q = shard(q, "batch", "seq", None, None)
         out = _dispatch_attend(q[:, :, :, None, :], kf, v, positions,
                                torch.arange(T, device=x.device),
                                causal=True, window=0, softcap=0.0,
@@ -730,7 +796,7 @@ def _causal_conv1d(u, w, b, state=None):
     if state is not None:
         u_pad = torch.cat([state.to(u.dtype), u], dim=1)
     else:
-        u_pad = F.pad(u, (0, 0, K - 1, 0))
+        u_pad = _pad(u, (0, 0, K - 1, 0))
     out = u_pad[:, :S] * w[0]
     for i in range(1, K):
         out = out + u_pad[:, i: i + S] * w[i]
@@ -741,6 +807,78 @@ def _softplus(x):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``): no threshold, unlike
     ``F.softplus``."""
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_scan_into(h, da, prev):
+    """The recurrence ``h_t = da_t * h_{t-1} + h_t`` over dim 1 of ``h``
+    ``[B,S,di,n]`` in place, from ``prev`` ``[B,di,n]`` (or none: zeros);
+    returns the last state (a view into ``h``)."""
+    hv, dv = h.unbind(1), da.unbind(1)  # the steps' views, made at once
+    for t in range(len(hv)):
+        if prev is not None:
+            hv[t].addcmul_(dv[t], prev)
+        prev = hv[t]
+    return prev
+
+
+class _MambaScan(torch.autograd.Function):
+    """The scan under autograd, one in-place step a token both ways: the
+    states written over a copy of the input, and in the backward the
+    states' gradient ``G_t = g_t + da_{t+1} G_{t+1}`` run in reverse over
+    a copy of the output gradient; then ``dx = G``, ``dda_t = G_t
+    h_{t-1}``, ``dprev = da_0 G_0``."""
+
+    @staticmethod
+    def forward(ctx, x, da, prev):
+        h = x.clone()
+        _mamba_scan_into(h, da, prev)
+        ctx.save_for_backward(da, h, prev)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        da, h, prev = ctx.saved_tensors
+        G = g.clone()
+        gv, dv = G.unbind(1), da.unbind(1)
+        for t in range(len(gv) - 2, -1, -1):
+            gv[t].addcmul_(dv[t + 1], gv[t + 1])
+        dda = G.clone()
+        dda[:, 1:].mul_(h[:, :-1])
+        if prev is None:
+            dda[:, 0].zero_()
+            return G, dda, None
+        dda[:, 0].mul_(prev)
+        return G, dda, da[:, 0] * G[:, 0]
+
+
+def _mamba_scan(hs, da, prev):
+    """``h_t = da_t * h_{t-1} + hs_t`` over dim 1 of ``[B,S,di,n]`` from
+    ``prev`` (``[B,di,n]``, or none: zeros): (the states, the last).
+    Under autograd through :class:`_MambaScan`; otherwise each step's
+    state is written over ``hs`` in place."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (hs, da, prev)):
+        h = _MambaScan.apply(hs, da, prev)
+        return h, h[:, -1]
+    return hs, _mamba_scan_into(hs, da, prev)
+
+
+def _mamba_scan_dt(hs, da, prev):
+    """:func:`_mamba_scan` on ``DTensor``s, on each rank's own shards
+    (``local_map``): the recurrence is elementwise in batch, ``di`` and
+    ``n``, so those keep their placements; the time dim is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(Replicate() if p.is_partial() or p == Shard(1) else p
+               for p in hs.placements)
+    last = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                 else p for p in pl)
+    return local_map(_mamba_scan, out_placements=(pl, last),
+                     in_placements=(pl, pl, None if prev is None else last),
+                     in_grad_placements=(pl, pl, None if prev is None
+                                         else last),
+                     redistribute_inputs=True)(hs, da, prev)
 
 
 def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
@@ -764,7 +902,8 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
                                    None if state is None else state["conv"])
     u = shard(F.silu(u), "batch", "seq", "mamba_inner")
 
-    xdbc = _mm(u, params["x_proj"])
+    # summed whole before it is sliced, as mlstm_apply's products are
+    xdbc = shard(_mm(u, params["x_proj"]), "batch", "seq", None)
     dt = _softplus(_mm(xdbc[..., :dtr], params["dt_proj"])
                    + params["dt_bias"]).float()
     Bc = xdbc[..., dtr: dtr + n].float()                     # [B,S,n]
@@ -775,18 +914,8 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     da = (dt[..., None] * A).exp_()                          # [B,S,di,n]
     hs = (dt * uf)[..., None] * Bc[:, :, None, :]            # db, then h
     prev = None if state is None else state["ssm"].float()
-    if hs.requires_grad:  # under autograd: the same steps, out of place
-        steps = []
-        for t in range(S):
-            prev = hs[:, t] if prev is None else torch.addcmul(
-                hs[:, t], da[:, t], prev)
-            steps.append(prev)
-        hs = torch.stack(steps, dim=1)
-    else:
-        for t in range(S):
-            if prev is not None:
-                hs[:, t].addcmul_(da[:, t], prev)
-            prev = hs[:, t]
+    hs, prev = (_mamba_scan_dt if is_dtensor(hs) else _mamba_scan)(
+        hs, da, prev)
     del da
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + uf * params["D"].float()
@@ -849,14 +978,20 @@ def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
                                    None if state is None else state["conv"])
     c = F.silu(c)
 
+    # The products over the sharded inner dim are pending sums on a model
+    # axis.  Each is summed whole here, as GSPMD places them: left
+    # pending, the clamp and the chunk reshapes below would take them
+    # sequence-sharded, and the [B, S, H, dh] split and the chunks cannot
+    # carry that.
     def heads(t):  # [B,S,di] -> [B,H,S,dh]
-        return t.reshape(B, S, H, dh).transpose(1, 2)
+        return shard(t, "batch", "seq", None).reshape(
+            B, S, H, dh).transpose(1, 2)
 
     q = heads(_mm(c, params["wq"])).float()
     # scaled in the compute dtype, as the reference, before the fp32 cast
     k = (heads(_mm(c, params["wk"])) / math.sqrt(dh)).float()
     v = heads(_mm(u, params["wv"])).float()
-    gates = _mm(u, params["wif"])                            # [B,S,2H]
+    gates = shard(_mm(u, params["wif"]), "batch", "seq", None)  # [B,S,2H]
     logi = gates[..., :H].clamp(-12.0, 12.0).float().transpose(1, 2)
     logf = _elementwise(F.logsigmoid,
                         gates[..., H:].float() + 2.0).transpose(1, 2)
@@ -892,7 +1027,10 @@ def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
         kc = k.reshape(B, H, nc, cs, dh)
         vc = v.reshape(B, H, nc, cs, dh)
         lic = logi.reshape(B, H, nc, cs)
-        cum_f = torch.cumsum(logf.reshape(B, H, nc, cs), dim=-1)
+        # on each rank's shard: cumsum's gradient (flip) has no DTensor
+        # rule in torch 2.11
+        cum_f = _elementwise(lambda t: torch.cumsum(t, dim=-1),
+                             logf.reshape(B, H, nc, cs), along={3})
         tot_f = cum_f[..., -1]
 
         # intra-chunk: D[i,j] = exp(cum_f_i - cum_f_j + logi_j), j <= i
@@ -925,7 +1063,10 @@ def mlstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None,
         den = (den_intra + den_inter).abs()[..., None]        # |q . n|
         y = (num / den.clamp_min(1.0)).reshape(B, H, S, dh)
 
-    y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    # whole rows for the norm: the einsums may leave the sequence sharded
+    # on a model axis, which the norm's [B*S, di] rows cannot carry
+    y = shard(y.transpose(1, 2).reshape(B, S, di).to(x.dtype), "batch",
+              "seq", None)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
     y = y + params["skip"] * c                                # learnable skip
     y = y * F.silu(z)
@@ -982,13 +1123,52 @@ def slstm_initial_state(batch: int, heads: int, dh: int, device=None):
             "m": full(-10.0)}
 
 
+def _heads_mm(x, w):
+    """``einsum("bhd,hdk->bhk", x, w)`` as one batched product over the
+    heads."""
+    return torch.bmm(x.transpose(0, 1), w).transpose(0, 1)
+
+
+def _slstm_cell_backward(c, n, m, pre, gc, gn, gm, gh):
+    """(dc, dn, dm, dpre) of :func:`_slstm_cell` at (c, n, m, pre) for the
+    cotangents of its (c, n, m, h): the step's forward recomputed, then
+    each op's derivative as autograd takes it (``maximum`` splits a tie
+    in half, ``clamp_min`` passes where it did not clamp)."""
+    zi, ii, fi, oi = pre.chunk(4, dim=-1)
+    zt = torch.tanh(zi)
+    ot = torch.sigmoid(oi)
+    log_f, buf = torch.ops.aten.log_sigmoid_forward(fi)
+    a = log_f + m
+    m_new = torch.maximum(a, ii)
+    i_p = torch.exp(ii - m_new)
+    f_p = torch.exp(a - m_new)
+    c_new = f_p * c + i_p * zt
+    n_new = f_p * n + i_p
+    nc = n_new.clamp_min(1e-6)
+    g_q = gh / nc                                  # h = (ot * c_new) / nc
+    g_nc = -gh * ((ot * c_new) / nc) / nc
+    g_c = gc + g_q * ot
+    g_n = gn + torch.where(n_new >= 1e-6, g_nc, 0.0)
+    e_i = (g_c * zt + g_n) * i_p                   # through exp(ii - m_new)
+    e_f = (g_c * c + g_n * n) * f_p                # through exp(a - m_new)
+    g_m = gm - e_i - e_f
+    g_max = torch.where(a == ii, g_m / 2, g_m)
+    g_a = e_f + g_max.masked_fill(a < ii, 0.0)
+    dpre = torch.cat([torch.ops.aten.tanh_backward(g_c * i_p, zt),
+                      e_i + g_max.masked_fill(a > ii, 0.0),
+                      torch.ops.aten.log_sigmoid_backward(g_a, fi, buf),
+                      torch.ops.aten.sigmoid_backward(g_q * c_new, ot)],
+                     dim=-1)
+    return g_c * f_p, g_n * f_p, g_a, dpre
+
+
 def _slstm_loop(wx, rrec, c, n, h, m, keep: bool = False):
     """The time loop over ``wx`` ``[B,S,H,4dh]`` from state (c, n, h, m):
     the per-step h's, the final state, and with ``keep`` each step's
     (c, n, m, h) before it and its ``pre``."""
     hs, kept = [], []
-    for t in range(wx.shape[1]):
-        pre = wx[:, t] + torch.einsum("bhd,hdk->bhk", h, rrec)
+    for wx_t in wx.unbind(1):
+        pre = wx_t + _heads_mm(h, rrec)
         if keep:
             kept.append((c, n, m, h, pre))
         c, n, m, h = _slstm_cell(c, n, m, pre)
@@ -998,8 +1178,9 @@ def _slstm_loop(wx, rrec, c, n, h, m, keep: bool = False):
 
 class _SLSTMScan(torch.autograd.Function):
     """The reference's ``_slstm_scan`` custom VJP: the reverse loop only
-    carries the state cotangents and emits each step's ``dpre``; the
-    recurrent weight's gradient is one contraction over (batch, time)
+    carries the state cotangents and emits each step's ``dpre``
+    (:func:`_slstm_cell_backward`, a step's derivative in closed form);
+    the recurrent weight's gradient is one contraction over (batch, time)
     afterwards."""
 
     @staticmethod
@@ -1012,29 +1193,38 @@ class _SLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs, dc, dn, dh, dm):
         rrec, c_prev, n_prev, m_prev, h_prev, pres = ctx.saved_tensors
-        dpres = [None] * pres.shape[0]
-        for t in reversed(range(pres.shape[0])):
-            with torch.enable_grad():
-                ins = [a[t].detach().requires_grad_()
-                       for a in (c_prev, n_prev, m_prev, pres)]
-                outs = _slstm_cell(*ins)
-                dc, dn, dm, dpre = torch.autograd.grad(
-                    outs, ins, (dc, dn, dm, dh + dhs[t]))
-            dh = torch.einsum("bhk,hdk->bhd", dpre, rrec)
+        steps = list(zip(c_prev.unbind(0), n_prev.unbind(0),
+                         m_prev.unbind(0), pres.unbind(0), dhs.unbind(0)))
+        rrec_t = rrec.transpose(1, 2)
+        dpres = [None] * len(steps)
+        for t in reversed(range(len(steps))):
+            c, n, m, pre, dh_t = steps[t]
+            dc, dn, dm, dpre = _slstm_cell_backward(c, n, m, pre, dc, dn,
+                                                    dm, dh + dh_t)
+            dh = _heads_mm(dpre, rrec_t)
             dpres[t] = dpre
         dpres = torch.stack(dpres)
         drrec = torch.einsum("sbhd,sbhk->hdk", h_prev, dpres)
         return dpres.transpose(0, 1), drrec, dc, dn, dh, dm
 
 
+def _slstm_stacked(wx, rrec, c0, n0, h0, m0):
+    """:func:`_slstm_loop` as (hs ``[S,B,H,dh]``, c, n, h, m)."""
+    hs, final, _ = _slstm_loop(wx, rrec, c0, n0, h0, m0)
+    return (torch.stack(hs), *final)
+
+
 def slstm_scan(wx, rrec, c0, n0, h0, m0):
     """The reference's ``_slstm_scan``: wx ``[B,S,H,4dh]``, rrec
     ``[H,dh,4dh]``, states ``[B,H,dh]`` -> (hs ``[S,B,H,dh]``, (c, n, h,
-    m)), differentiable through :class:`_SLSTMScan`.  On a ``DTensor``
-    wx each rank scans its own sequences (``local_map`` over the batch
+    m)), differentiable through :class:`_SLSTMScan` while grad is enabled
+    and an input requires it (else the plain loop).  On a ``DTensor`` wx
+    each rank scans its own sequences (``local_map`` over the batch
     shards; the recurrent weight replicated, its gradient partial)."""
+    fn = (_SLSTMScan.apply if torch.is_grad_enabled()
+          and (wx.requires_grad or rrec.requires_grad) else _slstm_stacked)
     if not is_dtensor(wx):
-        hs, *final = _SLSTMScan.apply(wx, rrec, c0, n0, h0, m0)
+        hs, *final = fn(wx, rrec, c0, n0, h0, m0)
         return hs, tuple(final)
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import local_map
@@ -1046,7 +1236,7 @@ def slstm_scan(wx, rrec, c0, n0, h0, m0):
                       for t in (c0, n0, h0, m0))
     on, part, _ = _row_placements(wx)
     b = on(0)
-    out = local_map(lambda *a: _SLSTMScan.apply(*a),
+    out = local_map(lambda *a: fn(*a),
                     out_placements=(on(1), b, b, b, b),
                     in_placements=(b, on(None), b, b, b, b),
                     in_grad_placements=(b, part, b, b, b, b),
@@ -1059,23 +1249,20 @@ def slstm_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     returns (out, state).  ``state`` = {"c","n","h","m"}, each [B,H,dh]
     fp32, written in place when given (a new dict otherwise).  The
     reference's ``lax.scan`` over time is a Python loop, one step a
-    token; under autograd it runs inside :func:`slstm_scan`."""
+    token, run by :func:`slstm_scan` (under autograd, its Function)."""
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
     wx = (_mm(x, params["win"]) + params["bias"]).float()
-    wx = wx.reshape(B, S, H, 4 * dh)
+    # the gate dim whole before it splits into (head, gate): a model axis
+    # that shards the 4d gate columns does not divide the heads
+    wx = shard(wx, "batch", "seq", None).reshape(B, S, H, 4 * dh)
 
     st = slstm_initial_state(B, H, dh, x.device) if state is None else state
     c, n, h, m = (st[key].float() for key in ("c", "n", "h", "m"))
     rrec = params["rrec"].float()
-    if torch.is_grad_enabled() and (wx.requires_grad or rrec.requires_grad):
-        hs, (c, n, h, m) = slstm_scan(wx, rrec, c, n, h, m)
-        y = hs.transpose(0, 1)
-    else:
-        hs, (c, n, h, m), _ = _slstm_loop(wx, rrec, c, n, h, m)
-        y = torch.stack(hs, dim=1)
-    y = y.reshape(B, S, d).to(x.dtype)
+    hs, (c, n, h, m) = slstm_scan(wx, rrec, c, n, h, m)
+    y = hs.transpose(0, 1).reshape(B, S, d).to(x.dtype)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
     up = _mm(y, params["up"])
     dff = params["down"].shape[0]

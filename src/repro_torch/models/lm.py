@@ -15,12 +15,14 @@ wraps each period in ``torch.utils.checkpoint`` while grad is enabled.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import (current_mesh, current_rules,
+                                           mesh_context, shard)
 
 from .blocks import (
     block_apply,
@@ -233,9 +235,19 @@ def lm_apply(
         return x, aux
 
     remat = caches is None and remat_active(cfg, values)
+    # the recompute runs where autograd runs the backward, on a CUDA
+    # device's own thread for card tensors: the mesh and rules current
+    # here (thread-local) go with it, or its shard(...) calls would place
+    # nothing and it would not compute what the forward did
+    scope = (current_mesh(), current_rules())
+
+    def recompute_context():
+        return nullcontext(), mesh_context(*scope)
+
     for r in range(reps):
         if caches is None:
-            x, a = (checkpoint(period, x, r, use_reentrant=False) if remat
+            x, a = (checkpoint(period, x, r, use_reentrant=False,
+                               context_fn=recompute_context) if remat
                     else period(x, r))
             aux_total = aux_total + a
             continue
@@ -353,9 +365,12 @@ def lm_loss(values, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     logz = torch.logsumexp(lgt, dim=-1)
     gold = torch.gather(lgt, -1, tgt[..., None])[..., 0]
     nll = (logz - gold) * mask
-    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    # each term summed whole under a mesh (a no-op without one): a
+    # pending sum and a pending mean do not add (DTensor refuses the
+    # redistribution between them in some torch releases)
+    loss = shard(nll.sum() / mask.sum().clamp_min(1.0))
     # z-loss stabilizer (PaLM): keeps logsumexp near 0
-    zloss = 1e-4 * torch.mean(torch.square(logz) * mask)
+    zloss = shard(1e-4 * torch.mean(torch.square(logz) * mask))
     return loss + zloss + aux, {
         "loss": loss, "aux": aux,
         "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}

@@ -185,13 +185,42 @@ def logical_sharding(axes: Sequence[Optional[str]], mesh=None,
     return placements_for(spec_for(axes, rules, mesh), mesh)
 
 
+def even_placements(placements: tuple, shape, mesh) -> tuple:
+    """``placements`` with each ``Shard(d)`` that does not split tensor dim
+    ``d`` evenly replaced by ``Replicate()``: mesh dims are taken major to
+    minor, and one whose size, times those of the mesh dims before it that
+    shard the same tensor dim, does not divide it replicates instead."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out, ways = [], {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = ways.get(p.dim, 1) * mesh.size(i)
+            if shape[p.dim] % n:
+                p = Replicate()
+            else:
+                ways[p.dim] = n
+        out.append(p)
+    return tuple(out)
+
+
 def shard(x, *axes: Optional[str]):
     """Redistribute a ``DTensor`` to the placements of ``axes``; a no-op
-    without a mesh (and on a plain tensor, which no mesh holds)."""
+    without a mesh (and on a plain tensor, which no mesh holds).
+
+    A tensor dim that its mesh axis does not divide is replicated over
+    that axis instead (:func:`even_placements`).  GSPMD pads such a dim
+    to a multiple of the axis and shards it; the values are the same
+    either way, only the communication differs.  (``DTensor`` can hold
+    an uneven shard, but redistributing one under ``FakeTensorMode``
+    raises ``DataDependentOutputException``, so a traced step on a fake
+    world could not take it.)"""
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    placements = placements_for(spec_for(axes, mesh=mesh), mesh)
+    placements = even_placements(
+        placements_for(spec_for(axes, mesh=mesh), mesh), x.shape,
+        x.device_mesh)
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)

@@ -28,7 +28,10 @@ machine without them:
   version (in ``chip_smoke.py``'s phase), a smoke train step on the card
   against the CPU (tinyllama, jamba, xlstm), whisper's smoke forward and
   tokens against the CPU, and the smoke trainer's restart replaying its
-  losses bit for bit.
+  losses bit for bit;
+* each kernel's ``torch.library`` op on card tensors: ``opcheck``'s
+  schema and fake-implementation checks, and its output equal to its
+  launcher's.
 """
 
 import sys
@@ -594,3 +597,46 @@ def test_int8_error_feedback_on_the_card_equals_the_cpu():
             assert torch.equal(ef.residual[k].cpu(), hef.residual[k]), k
         card = {k: v * 1.7 for k, v in card.items()}
         host = {k: v * 1.7 for k, v in host.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "fused_swiglu",
+                                  "fused_swiglu_with_hidden",
+                                  "fused_rmsnorm"])
+def test_kernel_ops_pass_opcheck_on_card_tensors(name):
+    """Each kernel's torch op on real card tensors: its schema, its fake
+    implementation against the kernel's output (shape, dtype, strides),
+    and its output equal to the launcher's, launch for launch."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    args = {
+        "flash_attention": (t(2, 8, 96, 64), t(2, 2, 96, 64),
+                            t(2, 2, 96, 64), True, 0, None),
+        "fused_swiglu": (t(40, 256), t(256, 704), t(256, 704),
+                         t(704, 256)),
+        "fused_swiglu_with_hidden": (t(40, 256), t(256, 704), t(256, 704),
+                                     t(704, 256)),
+        "fused_rmsnorm": (t(40, 256), t(256), 1e-5),
+    }[name]
+    op = getattr(torch.ops.repro_torch, name).default
+    torch.library.opcheck(op, args,
+                          test_utils=("test_schema", "test_faketensor"))
+    launcher = {"flash_attention": fa.flash_attention,
+                "fused_swiglu": ff.fused_swiglu,
+                "fused_swiglu_with_hidden": ff.fused_swiglu_with_hidden,
+                "fused_rmsnorm": rn.fused_rmsnorm}[name]
+    mod = {"flash_attention": fa, "fused_rmsnorm": rn}.get(name, ff)
+    before = mod.launches
+    got, want = op(*args), launcher(*args)
+    assert mod.launches == before + 2
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (got, want))):
+        assert torch.equal(a, b)

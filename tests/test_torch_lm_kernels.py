@@ -175,3 +175,93 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.rmsnorm(x, torch.zeros(4, device="meta"))
 
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch ops (repro_torch::...)
+# ---------------------------------------------------------------------------
+
+def _op_args(name, device):
+    """A small call of each kernel op, its tensors on ``device``."""
+    def t(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+    return {
+        "flash_attention": (t(1, 4, 16, 64), t(1, 2, 16, 64),
+                            t(1, 2, 16, 64), True, 0, None),
+        "fused_swiglu": (t(8, 64), t(64, 96), t(64, 96), t(96, 64)),
+        "fused_swiglu_with_hidden": (t(8, 64), t(64, 96), t(64, 96),
+                                     t(96, 64)),
+        "fused_rmsnorm": (t(8, 64), t(64), 1e-5),
+    }[name]
+
+
+OPS = ["flash_attention", "fused_swiglu", "fused_swiglu_with_hidden",
+       "fused_rmsnorm"]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_kernel_ops_pass_opcheck_on_meta_tensors(name):
+    """The op's schema and fake implementation (the meta inputs go to the
+    fake implementation; the op has no CPU implementation)."""
+    op = getattr(torch.ops.repro_torch, name).default
+    torch.library.opcheck(op, _op_args(name, "meta"),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.parametrize("wrapper", ["attention", "swiglu", "rmsnorm"])
+def test_fake_cuda_tensors_take_the_kernel_op_not_the_plain_version(
+        wrapper, monkeypatch):
+    """A fake ``cuda`` tensor (as the dry run traces) goes through
+    ``ops`` to the kernel's op, whose fake implementation gives the
+    output, and whose FLOP formula counts it; no plain version runs."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rmsnorm as trn
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on a cuda tensor")
+
+    for mod, name in ((ops, "attention_plain"), (ops, "swiglu_plain"),
+                      (ops, "rmsnorm_plain"), (tfa, "attention_plain"),
+                      (tffn, "swiglu_plain"),
+                      (tffn, "swiglu_plain_with_hidden"),
+                      (trn, "rmsnorm_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    with FakeTensorMode():
+        if wrapper == "attention":
+            q, k, v = _op_args("flash_attention", "cuda")[:3]
+            with FlopCounterMode(display=False) as fc:
+                out = ops.attention(q, k, v, causal=True)
+            shape, flops = q.shape, 4 * 1 * 4 * (16 * 17 // 2) * 64
+        elif wrapper == "swiglu":
+            x, wg, wi, wo = _op_args("fused_swiglu", "cuda")
+            with FlopCounterMode(display=False) as fc:
+                out = ops.swiglu(x, wg, wi, wo)
+            shape, flops = x.shape, 6 * 8 * 64 * 96
+        else:
+            x, s, eps = _op_args("fused_rmsnorm", "cuda")
+            with FlopCounterMode(display=False) as fc:
+                out = ops.rmsnorm(x, s, eps)
+            shape, flops = x.shape, 4 * 8 * 64
+    assert isinstance(out, FakeTensor) and out.device.type == "cuda"
+    assert out.shape == shape and out.dtype == torch.bfloat16
+    assert fc.get_total_flops() == flops
+
+
+@pytest.mark.parametrize("s_len,causal,window", [
+    (16, True, 0), (16, True, 5), (16, False, 0), (16, False, 5),
+    (3, True, 8), (3, False, 8), (1, True, 0)])
+def test_attention_flop_formula_counts_the_live_pairs(s_len, causal, window):
+    from repro_torch.kernels.flash_attention import live_pairs
+
+    qi = torch.arange(s_len)[:, None]
+    ki = torch.arange(s_len)[None, :]
+    mask = torch.ones((s_len, s_len), dtype=torch.bool)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    assert live_pairs(s_len, causal, window) == int(mask.sum())
