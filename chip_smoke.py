@@ -57,6 +57,11 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   configs, its GA batches through the streaming-block kernel, each plan
   equal to the ``vector`` backend's on the CPU, beside one tinyllama
   layer's forward at the planned tokens;
+* the examples: ``examples/{quickstart,cocco_plan_search,serve_lm,
+  train_tinylm}_torch.py`` through their ``main`` on the card at their
+  defaults (the ~100M trainer for 300 steps, its injected failure and
+  restart included), each held to its run on the CPU, and
+  ``scripts/smoke_serve_plans_torch.py --device cuda``;
 * the sharded train step: ``launch.train --model-parallel 1`` on a (1, 1)
   mesh of ``DTensor``s under a one-rank NCCL group, the kernels through
   ``local_map``, bit for bit the same 3 steps without a mesh, and int8
@@ -160,12 +165,19 @@ RMS_CASES = ((4096, 2048, 0), (800, 2048, 0), (8, 2048, 0), (4095, 2048, 0),
              # (d 1024, mLSTM out_norm 2048) at an 8 x 512 prefill and
              # batch-8 decode
              (4096, 5120, 0), (8, 5120, 0), (4096, 1536, 0), (8, 1536, 0),
-             (4096, 512, 0), (8, 512, 0), (4096, 1024, 0), (8, 1024, 0))
+             (4096, 512, 0), (8, 512, 0), (4096, 1024, 0), (8, 1024, 0),
+             # the examples: the ~100M trainer's microbatch (2 x 256 rows
+             # at d 768) and serve_lm's smoke prefill and decode rows
+             (512, 768, 0), (32, 64, 0), (24, 64, 0), (4, 64, 0),
+             (2, 64, 0), (32, 128, 0), (4, 128, 0))
 # B3 at M on both sides of the small/large-M tile threshold (16) and of
 # the large tiles' 128 rows, the prefill and decode shapes, and a ragged
 # shape (no TMA: the small tiles at any M)
 FFN_CASES = tuple((m, 2048, 5632) for m in (1, 4, 8, 16, 63, 64, 65, 129,
-                                            800, 4096)) + ((77, 200, 300),)
+                                            800, 4096)) + ((77, 200, 300),
+    # the examples: the ~100M trainer's microbatch and serve_lm's smoke
+    # prefill (4 x 8 rows) and decode (4 rows)
+    (512, 768, 2048), (32, 64, 128), (4, 64, 128))
 # B3 at jamba-v0.1-52b's width (d 4096, d_ff 14,336), bf16: decode at
 # batch 8, one expert's rows at an 8 x 512 prefill (B * C = 8 * 80) and a
 # dense FFN's at that prefill
@@ -186,7 +198,11 @@ ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               (8, 32, 8, 512, 128, True, 0),  # jamba's attention
               (2, 4, 4, 130, 32, True, 48), (1, 2, 2, 100, 128, False, 0),
               (1, 2, 1, 70, 256, True, 0), (2, 2, 2, 33, 16, True, 0),
-              (8, 8, 8, 1500, 64, False, 0))  # whisper's encoder
+              (8, 8, 8, 1500, 64, False, 0),  # whisper's encoder
+              # the examples: the ~100M trainer's microbatch (GQA 12 / 4),
+              # serve_lm's tinyllama smoke prefill and whisper smoke encoder
+              (2, 12, 4, 256, 64, True, 0), (4, 4, 2, 8, 16, True, 0),
+              (2, 4, 2, 12, 16, False, 0))
 # B2's tile edges (64 queries, 64 keys): every S, with and without a window
 # (40 keys: its edge falls inside tiles), every head dim, and Hkv of 1, H/8
 # and H query heads' worth, causal, at B 1, H 16
@@ -944,6 +960,10 @@ BACKWARD_CASES = (
     ("rmsnorm", (2048, 2048), "bfloat16"),
     ("rmsnorm", (12000, 512), "bfloat16"),
     ("rmsnorm", (300, 512), "float32"),
+    # the ~100M trainer of the examples, a microbatch of 2 x 256
+    ("flash_attention", (2, 12, 4, 256, 64, True), "float32"),
+    ("fused_ffn", (512, 768, 2048), "float32"),
+    ("rmsnorm", (512, 768), "float32"),
 )
 
 
@@ -1090,8 +1110,8 @@ def _trace_tops(prof, n: int = 12) -> dict:
 def _traced(fn) -> tuple:
     """``fn()`` under ``torch.profiler``: its result, and the trace's wall
     time, device activity and idle share, each LM kernel's traced launches
-    (counted by its first device kernel) and the heaviest device kernels
-    and host ops."""
+    (counted by its first device kernel) and device ms (all its device
+    kernels), and the heaviest device kernels and host ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1105,12 +1125,16 @@ def _traced(fn) -> tuple:
         wall = time.perf_counter() - t0
     activity = _device_activity(prof, tuple(names))
     by_kernel = {lib: 0 for lib in LM_KERNELS}
+    ms_by_kernel = {lib: 0.0 for lib in LM_KERNELS}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             for lib, (_, _, knames) in LM_KERNELS.items():
                 by_kernel[lib] += knames[0] in e.name
+                if any(n in e.name for n in knames):
+                    ms_by_kernel[lib] += e.time_range.elapsed_us() / 1e3
     return result, {
-        "traced_wall_s": wall, "traced_launches": by_kernel, **activity,
+        "traced_wall_s": wall, "traced_launches": by_kernel,
+        "traced_kernel_ms_by_lib": ms_by_kernel, **activity,
         "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3 / wall
                               if activity["device_events"] else None),
         **_trace_tops(prof)}
@@ -2018,6 +2042,258 @@ def phase_plan_h100() -> dict:
     if launches == 0 or launches != batches:
         raise AssertionError(f"plan-h100: {launches} launches for "
                              f"{batches} batches")
+    return out
+
+
+# -- the examples --------------------------------------------------------------
+
+# examples: the port's four examples through their main([...]) on the card
+# at their own defaults (quickstart: ResNet-50 at 4,000 samples, population
+# 60; the plan search: the ten configs at 2,000 samples; serve_lm: the fp32
+# smoke configs of tinyllama-1.1b and xlstm-350m, 4 x 8 prompt tokens and 6
+# new ones, and whisper-base's, 2 x 12 frames; train_tinylm: the ~100M fp32
+# config, 4 x 256 tokens in 2 microbatches, 300 steps, a checkpoint every
+# 50 and a failure injected at step 60), each held to the same on the CPU:
+# quickstart and the plan search byte for byte, serve_lm with the plan
+# latency masked, and the trainer's first EXAMPLE_CPU_STEPS losses within
+# the train_vs_cpu tolerance of the example's run for that many steps on
+# the CPU (through launch.train.run: the example's own check that the loss
+# fell does not hold after so few warmup steps).  The CPU runs take the
+# card's weights and initial parameters (drawn from seed 0 by a CUDA
+# generator, whose draws a CPU generator does not give); then
+# scripts/smoke_serve_plans_torch.py --device cuda in a subprocess
+EXAMPLE_CPU_STEPS = 5
+SMOKE_SCRIPT_TIMEOUT = 300  # seconds
+PLAN_LATENCY = r" in \d+\.\dms$"
+
+
+def _load_example(name: str):
+    """``examples/<name>.py`` imported as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, argv, counters) -> dict:
+    """``mod.main(argv)`` with its output captured and every kernel's count
+    from 0: its output, wall s and launches by kernel; raises unless it
+    exits 0."""
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc, text = _quiet(mod.main, list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"examples: {mod.__name__} {argv} exited "
+                             f"{rc}:\n{text}")
+    return {"text": text, "wall_s": wall,
+            "launches": {lib: c.launches for lib, c in counters.items()}}
+
+
+def _train_example(mod, argv, counters) -> tuple:
+    """The train example at ``argv`` in a fresh directory (its ``runs/``
+    checkpoints removed after): :func:`_run_example`'s record,
+    ``launch.train.run``'s result and the arguments the example gave it."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    runs, inner = [], train.run
+
+    def keep(args):
+        runs.append((inner(args), args))
+        return runs[-1][0]
+
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_example_", dir=WORK_DIR)
+    train.run = keep
+    try:
+        os.chdir(tmp)
+        rec = _run_example(mod, argv, counters)
+    finally:
+        train.run = inner
+        os.chdir(ROOT)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return (rec, *runs[0])
+
+
+def _smoke_script() -> dict:
+    """``scripts/smoke_serve_plans_torch.py --device cuda`` in its own
+    process group, killed whole at :data:`SMOKE_SCRIPT_TIMEOUT`."""
+    import signal
+
+    cmd = [sys.executable, str(ROOT / "scripts" /
+                               "smoke_serve_plans_torch.py"),
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text = proc.communicate(timeout=SMOKE_SCRIPT_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text = proc.communicate()[0]
+    wall = time.perf_counter() - t0
+    ok = [line for line in text.splitlines() if line.startswith("smoke OK")]
+    out = {"rc": proc.returncode, "wall_s": wall,
+           "result": ok[0] if ok else None}
+    if proc.returncode != 0 or not ok:
+        raise AssertionError(f"examples: {' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{text[-4000:]}")
+    return out
+
+
+def _example_step_trace(cfg, a, state) -> dict:
+    """One more step of the train example on the card from its final
+    ``state``, with the example's arguments ``a`` (its ``run_args``),
+    under ``torch.profiler``: :func:`_traced`'s record, with each LM
+    kernel's share of the device's busy time."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    opt_cfg = AdamWConfig(lr=a.lr, warmup_steps=a.warmup,
+                          total_steps=a.steps, state_dtype=cfg.opt_dtype)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=a.microbatches)
+    batch = to_device(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=a.seq, global_batch=a.batch,
+        seed=a.seed)).batch_at(a.steps), CARD)
+
+    def one_step():
+        out = step_fn(state["params"], state["opt"], batch)
+        torch.cuda.synchronize()
+        return float(out[2]["loss"])
+
+    one_step()
+    _, trace = _traced(one_step)
+    busy = trace["device_busy_ms"]
+    trace["kernel_share_of_busy"] = {
+        lib: ms / busy if busy else None
+        for lib, ms in trace["traced_kernel_ms_by_lib"].items()}
+    return trace
+
+
+def phase_examples(device: dict) -> dict:
+    """The port's four examples on the card at their defaults, each held
+    to its run on the CPU, then the plan server's smoke script on the
+    card; B1-B4 each launched by the examples."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import finish_batch as fb
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"finish_batch": fb, **_lm_counters()}
+    card, cpu = ["--device", "cuda"], ["--device", "cpu"]
+    out = {"phase": "examples", "device": device["nvidia_smi"]}
+    launches = {lib: 0 for lib in counters}
+    failed = []
+
+    def record(name, on_card, on_cpu, equal, **extra):
+        out[name] = {"wall_s": on_card["wall_s"],
+                     "wall_cpu_s": on_cpu["wall_s"],
+                     "launches": on_card["launches"],
+                     "equal_to_cpu": equal, **extra}
+        for lib, n in on_card["launches"].items():
+            launches[lib] += n
+        if not equal:
+            failed.append(name)
+
+    for name in ("quickstart_torch", "cocco_plan_search_torch"):
+        mod = _load_example(name)
+        on_card = _run_example(mod, card, counters)
+        on_cpu = _run_example(mod, cpu, counters)
+        record(name, on_card, on_cpu, on_card["text"] == on_cpu["text"],
+               lines=on_card["text"].splitlines())
+
+    # the CPU run serves the card's weights: a CUDA generator's draws are
+    # not a CPU generator's
+    mod = _load_example("serve_lm_torch")
+    on_card = _run_example(mod, card, counters)
+    drawn = mod.weights
+    mod.weights = lambda arch, _: tree_map(torch.Tensor.cpu,
+                                           drawn(arch, CARD))
+    on_cpu = _run_example(mod, cpu, counters)
+    masked = [re.sub(PLAN_LATENCY, " in …ms", r["text"], flags=re.M)
+              for r in (on_card, on_cpu)]
+    record("serve_lm_torch", on_card, on_cpu,
+           masked[0] == masked[1] and masked[0].count(" -> [") == 10,
+           lines=on_card["text"].splitlines())
+
+    mod = _load_example("train_tinylm_torch")
+    torch.cuda.reset_peak_memory_stats()
+    on_card, run_card, card_args = _train_example(mod, card, counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the example's run on the CPU, without checkpoints, from the card
+    # run's initial parameters
+    args = mod.run_args(EXAMPLE_CPU_STEPS, False, "cpu")
+    args.ckpt_dir = None
+    start = tree_map(torch.Tensor.cpu, train.build_state(
+        mod.SMALL, AdamWConfig(), CARD, args.seed)[0])
+    build_state = train.build_state
+    train.build_state = lambda cfg, opt_cfg, *_, **__: (
+        start, adamw_init(start, opt_cfg))
+    t0 = time.perf_counter()
+    try:
+        with mod.smoke_config(mod.SMALL):
+            run_cpu, _ = _quiet(train.run, args)
+    finally:
+        train.build_state = build_state
+    on_cpu = {"wall_s": time.perf_counter() - t0}
+    card_first = [loss for _, loss in run_card["losses"][:EXAMPLE_CPU_STEPS]]
+    cpu_losses = [loss for _, loss in run_cpu["losses"]]
+    errs = [abs(a - b) for a, b in zip(card_first, cpu_losses)]
+    close = len(cpu_losses) == EXAMPLE_CPU_STEPS and all(
+        e <= TRAIN_VS_CPU_LOSS_TOL * max(1.0, abs(b))
+        for e, b in zip(errs, cpu_losses))
+    # no remat: one forward a microbatch, 2 microbatches a step
+    expected = {lib: n * 2 * len(run_card["losses"])
+                for lib, n in _per_forward(mod.SMALL).items()}
+    warm = run_card["step_s"][2:]
+    step_s = sum(warm) / len(warm)
+    log = on_card["text"].splitlines()
+    restarted = "[fault-injection] restarted from 50" in log
+    trace = _example_step_trace(mod.SMALL, card_args, run_card.pop("state"))
+    run_cpu.pop("state")
+    torch.cuda.empty_cache()
+    record("train_tinylm_torch", on_card, on_cpu, close and restarted,
+           params=mod.SMALL.param_count(),
+           steps_run=len(run_card["losses"]), warm_step_s=step_s,
+           tokens_per_s=card_args.batch * card_args.seq / step_s, peak_memory_gb=peak_gb,
+           first_loss=run_card["first_loss"],
+           last_loss=run_card["last_loss"], restarted_from_50=restarted,
+           card_losses=card_first, cpu_losses=cpu_losses,
+           max_loss_abs_err=max(errs, default=None),
+           loss_tol=TRAIN_VS_CPU_LOSS_TOL, last_line=log[-1],
+           expected_launches=expected, traced_step=trace)
+    out["smoke_serve_plans_torch"] = _smoke_script()
+    out["launches"] = launches
+    emit(out)
+    if failed:
+        raise AssertionError(f"examples: {failed} disagree with the CPU")
+    idle = [lib for lib, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"examples: {idle} never launched")
+    if not run_card["last_loss"] < run_card["first_loss"]:
+        raise AssertionError("examples: the trainer did not learn")
+    trained = {lib: on_card["launches"][lib] for lib in expected}
+    if trained != expected:
+        raise AssertionError(f"examples: the trainer made {trained} "
+                             f"launches, not {expected}")
     return out
 
 
@@ -3005,11 +3281,12 @@ PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
           "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
           "serve_whisper", "whisper_vs_cpu", "train", "train_vs_cpu",
-          "plan_h100", "sharded", "dryrun", "lm_timing")
-# the phases that run a model at full width, whose launches the kernels
-# line sums
+          "plan_h100", "examples", "sharded", "dryrun", "lm_timing")
+# the phases whose LM launches the kernels line sums: those that run a
+# model at full width (whole or a full-width slice), and the examples,
+# which serve smoke configs and train the ~100M config
 MAIN_PATHS = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm",
-              "serve_whisper", "train", "sharded", "dryrun")
+              "serve_whisper", "train", "examples", "sharded", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -3087,6 +3364,10 @@ def main(argv=None) -> int:
         phase_train_vs_cpu()
     if run("plan_h100"):
         b1_launches["plan_h100"] = phase_plan_h100()["kernel_launches"]
+    if run("examples"):
+        served["examples"] = phase_examples(device)
+        b1_launches["examples"] = served["examples"]["launches"][
+            "finish_batch"]
     if run("sharded"):
         served["sharded"] = phase_sharded(device)
     if run("dryrun"):

@@ -231,7 +231,7 @@ def _print_profile(res: ExploreResult) -> None:
           f"{prof.get('lookups', 0)} lookups")
 
 
-def _require_device(device: str) -> None:
+def require_device(device: str) -> None:
     """Raise ``RuntimeError`` (``error: ...``, exit 2 from :func:`main`)
     when ``device`` is ``cuda`` and there is no GPU: a command that
     evaluates on the card never carries on on the CPU."""
@@ -242,6 +242,18 @@ def _require_device(device: str) -> None:
             raise RuntimeError(
                 "--device cuda needs a CUDA GPU and none is available; "
                 "pass --device cpu to run on the CPU")
+
+
+def missing_device(device: str) -> bool:
+    """Whether :func:`require_device` refuses ``device``; if so, its
+    message is printed to stderr as ``error: ...``, and a script's
+    ``main`` returns 2."""
+    try:
+        require_device(device)
+    except RuntimeError as err:
+        print(f"error: {err}", file=sys.stderr)
+        return True
+    return False
 
 
 def _eval_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
@@ -535,7 +547,7 @@ def cmd_serve_plans(args: argparse.Namespace) -> int:
         print(f"  served_from={doc['served_from']} deduped={doc['deduped']} "
               f"latency={doc['latency_ms']:.1f}ms key={doc['key'][:16]}")
         return 0
-    _require_device(args.device)
+    require_device(args.device)
     store_dir = args.store_dir or os.environ.get("REPRO_STORE_DIR")
     if not store_dir:
         raise SystemExit(
@@ -945,7 +957,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 2
     try:
         if args.needs_device:
-            _require_device(args.device)
+            require_device(args.device)
         return args.fn(args)
     except (KeyError, ValueError, TypeError, OSError, RuntimeError) as err:
         # user-input errors (unknown workload, bad option key, missing spec

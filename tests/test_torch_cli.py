@@ -6,8 +6,9 @@
 * ``--device cuda`` (the default) without a GPU exits 2 with ``error:``;
 * ``spec_key`` and ``graph_fingerprint`` give the reference's digests, so
   a store written by either package replays in the other;
-* no module of ``repro_torch``, and not ``chip_smoke.py``, imports jax or
-  the JAX package;
+* no module of ``repro_torch``, not ``chip_smoke.py`` and not the port's
+  examples and plan-server smoke script import jax or the JAX package;
+* ``scripts/smoke_serve_plans_torch.py --device cpu`` passes;
 * the kernel-against-plain phase of ``chip_smoke.py`` runs on a card
   (marked ``gpu``; skips without one).
 """
@@ -178,13 +179,18 @@ def test_port_imports_neither_jax_nor_the_reference():
         ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (SRC / "repro_torch").rglob("*.py"))
+    scripts = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
+    scripts.append(str(ROOT / "scripts" / "smoke_serve_plans_torch.py"))
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
         f"for name in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        f"for path in {scripts!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('script', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'repro.')) or m == 'repro']\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
@@ -194,6 +200,16 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     assert "repro_torch.core.engine" in modules
     assert "repro_torch.__main__" in modules
+    assert len(scripts) == 5
+
+
+def test_plan_server_smoke_script_passes_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "smoke_serve_plans_torch.py"),
+         "--device", "cpu"], capture_output=True, text=True, timeout=180,
+        cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "smoke OK:" in proc.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -22,7 +22,8 @@ machine without them:
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results;
 * a fresh plan server whose first two searches arrive at once builds B1
-  once and answers both as the ``vector`` backend does;
+  once and answers both as the ``vector`` backend does, and
+  ``scripts/smoke_serve_plans_torch.py --device cuda`` passes;
 * the kernels under autograd: the wrappers refuse inputs that require
   grad, each Function's backward against autograd through its plain
   version (in ``chip_smoke.py``'s phase), a smoke train step on the card
@@ -34,6 +35,7 @@ machine without them:
   launcher's.
 """
 
+import subprocess
 import sys
 from pathlib import Path
 
@@ -533,6 +535,19 @@ def test_plan_h100_on_the_card_equals_vector(arch):
                              eval_backend="vector")
     for field in _chip_smoke().PLAN_FIELDS:
         assert getattr(card, field) == getattr(want, field), field
+
+
+@pytest.mark.gpu
+def test_plan_server_smoke_script_passes_on_the_card():
+    """``scripts/smoke_serve_plans_torch.py --device cuda``: the plan
+    server's five checks with its searches on the card."""
+    needs_gpu()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "smoke_serve_plans_torch.py"),
+         "--device", "cuda"], capture_output=True, text=True, timeout=300,
+        cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "smoke OK:" in proc.stdout
 
 
 @pytest.mark.gpu
