@@ -36,11 +36,11 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   fp32 on the card against the CPU (logits, router choices, greedy
   tokens), and ``launch.serve`` on jamba's smoke config;
 * MLA and the xLSTM mixers: deepseek-v2-236b at its published widths cut
-  to 4 layers (MLA's 128 heads through the flash-attention kernel, q/k and
-  v padded to 256 columns; 160 routed experts and 2 shared through the
-  fused SwiGLU kernel) and xlstm-350m at full width and depth, each served
-  as jamba is; both smoke configs in fp32 on the card against the CPU, and
-  ``launch.serve`` on each;
+  to 4 layers (MLA's 128 heads through the flash-attention kernel at their
+  own widths, q/k 192 and v 128 columns, every call recorded; 160 routed
+  experts and 2 shared through the fused SwiGLU kernel) and xlstm-350m at
+  full width and depth, each served as jamba is; both smoke configs in
+  fp32 on the card against the CPU, and ``launch.serve`` on each;
 * whisper-base at its published widths through ``EncDecEngine`` (8 rows of
   1,500 frames: the encoder's attention through the flash-attention
   kernel non-causally, once per encoder layer), and its fp32 smoke config
@@ -187,12 +187,27 @@ JAMBA_FFN_CASES = tuple((m, 4096, 14336) for m in (8, 640, 4096))
 # prefill (B * C = 8 * 24), decode at batch 8 and the dense prefill's rows
 DEEPSEEK_FFN_CASES = tuple((m, 5120, f) for f in (1536, 12288)
                            for m in (192, 8, 4096))
-# B2 under MLA's contract, (B, H, S, q/k width, v width, dtype): q and k
-# zero-padded from dh + rope to 256 columns (16 + 8 to 32 at the smoke
-# widths), v from its width, scale 1/sqrt(q/k width); deepseek's 8 x 512
-# prefill in bf16 and the smoke prefill in fp32
+# B2 under MLA's contract, (B, H, S, q/k width, v width, dtype), scale
+# 1/sqrt(q/k width): deepseek's 8 x 512 prefill in bf16 and the smoke
+# prefill in fp32, then ragged lengths at (192, 128) in both dtypes.  Each
+# case runs as mla_apply runs it: unpadded where the kernel is built for
+# the pair (deepseek's 192 and 128), else q, k and v zero-padded to one
+# width that covers both (the smoke widths' 16 + 8 and 16 to 32); the
+# first case also padded to 256 columns (the d-256 route, which MLA took
+# before the kernel took two widths)
 MLA_ATTN_CASES = ((8, 128, 512, 192, 128, "bfloat16"),
-                  (1, 4, 64, 24, 16, "float32"))
+                  (1, 4, 64, 24, 16, "float32"),
+                  (2, 16, 200, 192, 128, "bfloat16"),
+                  (2, 16, 130, 192, 128, "bfloat16"),
+                  (1, 8, 200, 192, 128, "float32"),
+                  (2, 4, 130, 192, 128, "float32"))
+# B3's fp32 route besides FFN_CASES: both sides of its switch from the
+# streaming kernels to the tiled ones (M 16 | 17), above it at a split K,
+# and d and f that are not multiples of 4 (4-byte copies and element
+# loads) on both designs; every fp32 case is also called twice and must
+# repeat bit for bit (products split along K sum in split order)
+FFN_F32_CASES = ((17, 2048, 5632), (32, 2048, 5632), (3, 202, 302),
+                 (16, 770, 2046), (77, 202, 302), (300, 130, 258))
 # (B, H, Hkv, S, d, causal, window): the serving shapes and ragged ones
 ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               (8, 32, 8, 512, 128, True, 0),  # jamba's attention
@@ -1275,16 +1290,20 @@ def _serve_hybrid(cfg, values, n: int, prompt_len: int) -> tuple:
         max_batch=SERVE_MAX_BATCH, max_len=prompt_len + SERVE_NEW_TOKENS + 8))
 
 
-def _serve_slice(phase: str, cfg, device: dict) -> dict:
+def _serve_slice(phase: str, cfg, device: dict, b2_widths=None) -> dict:
     """``cfg`` at full width (random bf16 weights from seed 0 drawn on the
     card), served as ``serve`` serves tinyllama: both runs of
     :data:`SERVE_RUNS` with every kernel's launch count set to 0 before
-    and read after and held to the structure, both again warm with the
-    same greedy tokens, then the 8 x 512 run under ``torch.profiler``."""
+    and read after and held to the structure, every B2 call's (q/k, v)
+    widths recorded there (and held to ``b2_widths`` where given), both
+    again warm with the same greedy tokens, then the 8 x 512 run under
+    ``torch.profiler``."""
+    import collections
     import dataclasses
 
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.models import lm_init, param_values
     from repro_torch.models.layers import tree_map
 
@@ -1305,9 +1324,19 @@ def _serve_slice(phase: str, cfg, device: dict) -> dict:
     counters = _lm_counters()
     for mod in counters.values():
         mod.launches = 0
+    widths, inner = collections.Counter(), ops.flash_attention_op
+
+    def recording(q, k, v, causal, window, scale):
+        widths[f"{q.shape[-1]}x{v.shape[-1]}"] += 1
+        return inner(q, k, v, causal, window, scale)
+
     torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention_op = recording
     t0 = time.perf_counter()
-    runs = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+    try:
+        runs = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+    finally:
+        ops.flash_attention_op = inner
     wall = time.perf_counter() - t0
     launches = {lib: mod.launches for lib, mod in counters.items()}
     groups = [g for _, gs in runs for g in gs]
@@ -1339,6 +1368,7 @@ def _serve_slice(phase: str, cfg, device: dict) -> dict:
         "runs": [list(r) for r in SERVE_RUNS], "wall_s": wall,
         "forwards": sum(1 + g["decode_steps"] for g in groups),
         "launches": launches, "expected_launches": expected,
+        "b2_widths": dict(widths),
         "warm": [{k: g[k] for k in ("batch", "prompt_len", "ttft_s",
                                     "prefill_s", "decode_tokens_per_s")}
                  for _, gs in warm for g in gs],
@@ -1351,6 +1381,11 @@ def _serve_slice(phase: str, cfg, device: dict) -> dict:
     if launches != expected:
         raise AssertionError(f"{phase} launches {launches} != "
                              f"structural {expected}")
+    if b2_widths is not None and dict(widths) != {
+            b2_widths: launches["flash_attention"]}:
+        raise AssertionError(f"{phase}: B2 took the widths {dict(widths)}, "
+                             f"not {b2_widths} at each of its "
+                             f"{launches['flash_attention']} launches")
     if not same_tokens or not out["tokens_equal_traced_first"]:
         raise AssertionError(f"{phase}: the passes gave other tokens")
     return out
@@ -1367,11 +1402,12 @@ def phase_serve_hybrid(device: dict) -> dict:
 
 def phase_serve_mla(device: dict) -> dict:
     """deepseek-v2-236b's 4 layers at full width (:data:`MLA_ARCH`)
-    through :func:`_serve_slice`."""
+    through :func:`_serve_slice`, every B2 call at MLA's own widths, q/k
+    192 and v 128 columns, unpadded."""
     from repro_torch.configs import get_config
 
     return _serve_slice("serve_mla", get_config(MLA_ARCH).with_(
-        n_layers=MLA_LAYERS), device)
+        n_layers=MLA_LAYERS), device, b2_widths="192x128")
 
 
 def phase_serve_xlstm(device: dict) -> dict:
@@ -2685,13 +2721,17 @@ def _lm_calls():
     for i, (b, h, s_len, dqk, dv, tname) in enumerate(MLA_ATTN_CASES):
         dtype = getattr(torch, tname)
         args, scale = _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 90 + i)
-        yield ("flash_attention",
-               {"b": b, "h": h, "hkv": h, "s": s_len, "d": args[0].shape[-1],
-                "mla": {"qk": dqk, "v": dv}, "scale": scale, "causal": True,
-                "window": 0}, dtype,
-               lambda a=args[:3], sc=scale: fa.flash_attention_op(
-                   *a, True, 0, sc),
-               lambda a=args[:3], sc=scale: fa.attention_plain(*a, scale=sc))
+        unpadded = (dqk, dv) in fa.WIDTH_PAIRS
+        for padded in ((False, True) if i == 0 else (not unpadded,)):
+            a = args[:3] if padded else args[3:]
+            yield ("flash_attention",
+                   {"b": b, "h": h, "hkv": h, "s": s_len,
+                    "d": a[0].shape[-1], "dv": a[2].shape[-1],
+                    "mla": {"qk": dqk, "v": dv, "padded": padded},
+                    "scale": scale, "causal": True, "window": 0}, dtype,
+                   lambda a=a, sc=scale: fa.flash_attention_op(
+                       *a, True, 0, sc),
+                   lambda a=a, sc=scale: fa.attention_plain(*a, scale=sc))
     for i, (m, d, f) in enumerate(DEEPSEEK_FFN_CASES):
         args = _ffn_inputs(m, d, f, torch.bfloat16, 100 + 4 * i)
         yield ("fused_ffn", {"m": m, "d": d, "f": f}, torch.bfloat16,
@@ -2707,12 +2747,12 @@ def _lm_calls():
                    dtype,
                    lambda a=args: rn.fused_rmsnorm_op(*a, 1e-5),
                    lambda a=args: rn.rmsnorm_plain(*a))
-        ffn_cases = FFN_CASES + (JAMBA_FFN_CASES if dtype == torch.bfloat16
-                                 else ())
+        f32 = dtype == torch.float32
+        ffn_cases = FFN_CASES + (FFN_F32_CASES if f32 else JAMBA_FFN_CASES)
         for i, (m, d, f) in enumerate(ffn_cases):
             args = _ffn_inputs(m, d, f, dtype, 20 + 4 * i)
-            yield ("fused_ffn", {"m": m, "d": d, "f": f}, dtype,
-                   lambda a=args: ff.fused_swiglu_op(*a),
+            yield ("fused_ffn", {"m": m, "d": d, "f": f, "repeat": f32},
+                   dtype, lambda a=args: ff.fused_swiglu_op(*a),
                    lambda a=args: ff.swiglu_plain(*a))
         for i, (b, h, hkv, s, d, causal, window) in enumerate(
                 ATTN_CASES + ATTN_SWEEP):
@@ -2806,9 +2846,12 @@ def _backward_vs_plain(errs: dict, failed: list) -> None:
 def phase_lm_kernels_vs_plain() -> dict:
     """Each LM kernel against its plain torch version on the same card
     tensors: at the serving path's shapes (tinyllama's, jamba's,
-    deepseek's and xlstm's; B3 at jamba's and deepseek's widths and B2
-    under MLA's padded contract at deepseek's in bf16 only, B2 at the MLA
-    smoke shape in fp32 only) and at ragged ones, in bf16
+    deepseek's and xlstm's; B3 at jamba's and deepseek's widths in bf16
+    only; B2 under MLA's contract, :data:`MLA_ATTN_CASES`: unpadded at
+    (192, 128) in both dtypes, ragged lengths included, padded at the smoke
+    widths in fp32 and to 256 columns once in bf16; B3's fp32 route across
+    its switch and at ragged widths, :data:`FFN_F32_CASES`, each call
+    repeated and held to repeat bit for bit) and at ragged ones, in bf16
     (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
     ``tests/test_kernels.py``.  Returns the largest absolute error of each
     kernel, by dtype.  Then each kernel's autograd Function: its backward
@@ -2824,9 +2867,12 @@ def phase_lm_kernels_vs_plain() -> dict:
     errs: dict = {}
     failed = []
     sweep: dict = {}  # (dtype, d, causal) -> [cases, max error]
+    from repro_torch.kernels import fused_ffn as ff
+
     for name, case, dtype, kernel, plain in _lm_calls():
         got = kernel()
         want = plain()
+        repeat = kernel() if case.pop("repeat", False) else None
         torch.cuda.synchronize()
         tname = str(dtype).removeprefix("torch.")
         tol = LM_TOL[tname]
@@ -2834,6 +2880,13 @@ def phase_lm_kernels_vs_plain() -> dict:
         err = float((got.float() - want.float()).abs().max())
         ok = finite and got.shape == want.shape and torch.allclose(
             got.float(), want.float(), rtol=tol, atol=tol)
+        if repeat is not None:
+            # two calls of B3's fp32 route: equal bit for bit, split K or
+            # not (the workspace bytes say whether a product was split)
+            case["repeats_bitwise"] = torch.equal(got, repeat)
+            case["workspace_bytes"] = ff._WORKSPACE.get(
+                (got.get_device(), case["m"], case["d"], case["f"], 0))
+            ok = ok and case["repeats_bitwise"]
         key = (name, tname)
         errs[key] = max(errs.get(key, 0.0), err)
         if case.pop("sweep", False) and ok:
@@ -2998,16 +3051,25 @@ def _sdpa_backends(q, k, v, scale) -> dict:
     return {"sdpa_backends": runs, "sdpa_default_equals": same}
 
 
+# the MLA_ATTN_CASES that lm_timing times: deepseek's prefill, the smoke
+# prefill
+MLA_TIMING_CASES = MLA_ATTN_CASES[:2]
+
+
 def _mla_timing_rows() -> dict:
     """B2, B3 and B4 at deepseek-v2-236b's and xlstm-350m's shapes
     (``serve_mla``, ``serve_xlstm``).  B2 under MLA's contract
-    (:data:`MLA_ATTN_CASES`): the kernel on the padded q/k/v, its library
-    call ``F.scaled_dot_product_attention`` on the unpadded ones (with the
-    backends that take them, :func:`_sdpa_backends`), the bound from the
-    unpadded work (q/k 192 and v 128 wide; the padded work's bound beside
-    it).  B3 at an expert's and the dense layer's widths
-    (:data:`DEEPSEEK_FFN_CASES`), with the composite; B4 at the new norm
-    widths over an 8 x 512 prefill, with ``F.rms_norm``."""
+    (:data:`MLA_TIMING_CASES`): the kernel as ``mla_apply`` calls it
+    (deepseek's prefill unpadded at (192, 128), the smoke widths padded to
+    32), and at deepseek's prefill also on q/k/v zero-padded to 256
+    columns (``route`` ``padded``: the route MLA took before, timed in the
+    same run); its library call ``F.scaled_dot_product_attention`` on the
+    unpadded ones (with the backends that take them,
+    :func:`_sdpa_backends`), the bound from the unpadded work (q/k 192 and
+    v 128 wide; the padded work's bound beside it).  B3 at an expert's and
+    the dense layer's widths (:data:`DEEPSEEK_FFN_CASES`), with the
+    composite; B4 at the new norm widths over an 8 x 512 prefill, with
+    ``F.rms_norm``."""
     import torch
     import torch.nn.functional as F
 
@@ -3017,33 +3079,39 @@ def _mla_timing_rows() -> dict:
 
     bf16, rows = torch.bfloat16, {}
     rows["flash_attention"] = []
-    for b, h, s_len, dqk, dv, tname in MLA_ATTN_CASES:
+    for b, h, s_len, dqk, dv, tname in MLA_TIMING_CASES:
         dtype = getattr(torch, tname)
         first, scale = _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 111)
         width = first[0].shape[-1]
         pairs = b * h * s_len * (s_len + 1) // 2  # causal
         nbytes = b * h * s_len * 2 * (dqk + dv) * dtype.itemsize
         padded_bytes = b * h * s_len * 4 * width * dtype.itemsize
+        unpadded = (dqk, dv) in fa.WIDTH_PAIRS
 
         def sdpa(qp, kp, vp, q, k, v, scale=scale):
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   scale=scale)
 
-        rows["flash_attention"].append(_timing_row(
-            "flash_attention",
-            {"b": b, "h": h, "hkv": h, "s": s_len, "d": width,
-             "causal": True, "mla": {"qk": dqk, "v": dv}},
-            lambda i, b=b, h=h, s_len=s_len, dqk=dqk, dv=dv, dtype=dtype:
-            _mla_attn_inputs(b, h, s_len, dqk, dv, dtype, 111 + 6 * i)[0],
-            lambda qp, kp, vp, *_, scale=scale: fa.flash_attention(
-                qp, kp, vp, scale=scale),
-            lambda qp, kp, vp, *_, scale=scale: fa.attention_plain(
-                qp, kp, vp, scale=scale),
-            sdpa, nbytes=nbytes, ops=2 * (dqk + dv) * pairs,
-            reps=20 if b > 1 else 200, dtype=tname,
-            extra={**_sdpa_backends(*first[3:], scale),
-                   "padded_bound_ms": _bound(
-                       padded_bytes, 4 * width * pairs, tname)[0]}))
+        for padded in ((False, True) if unpadded else (True,)):
+            i0 = 3 * (not padded)  # the unpadded q, k, v follow the padded
+            rows["flash_attention"].append(_timing_row(
+                "flash_attention",
+                {"b": b, "h": h, "hkv": h, "s": s_len,
+                 "d": width if padded else dqk,
+                 "causal": True, "mla": {"qk": dqk, "v": dv},
+                 "route": "padded" if padded else "unpadded"},
+                lambda i, b=b, h=h, s_len=s_len, dqk=dqk, dv=dv,
+                dtype=dtype: _mla_attn_inputs(b, h, s_len, dqk, dv, dtype,
+                                              111 + 6 * i)[0],
+                lambda *a, scale=scale, i0=i0: fa.flash_attention(
+                    *a[i0:i0 + 3], scale=scale),
+                lambda *a, scale=scale, i0=i0: fa.attention_plain(
+                    *a[i0:i0 + 3], scale=scale),
+                sdpa, nbytes=nbytes, ops=2 * (dqk + dv) * pairs,
+                reps=20 if b > 1 else 200, dtype=tname,
+                extra={**_sdpa_backends(*first[3:], scale),
+                       "padded_bound_ms": _bound(
+                           padded_bytes, 4 * width * pairs, tname)[0]}))
         del first
 
     def composite(x, wg, wi, wo):
@@ -3080,9 +3148,11 @@ def phase_lm_timing() -> dict:
     formulas at the train step's shapes (:func:`_backward_timing_rows`).
     Returns the 8 x 512 prefill row of each kernel, with B3's and B4's
     decode rows, each kernel's jamba rows (``<lib>_jamba``), deepseek /
-    xlstm rows (``<lib>_mla_xlstm``), B3's fp32 rows (``fused_ffn_fp32``),
-    B2's whisper row (``flash_attention_whisper``) and the backward rows
-    (``backward``, by kernel)."""
+    xlstm rows (``<lib>_mla_xlstm``), the fp32 rows of B3 (tinyllama's
+    prefill and decode, the ~100M trainer's microbatch) and of B2 (the
+    trainer's) (``<lib>_fp32``), B2's whisper row
+    (``flash_attention_whisper``) and the backward rows (``backward``, by
+    kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -3106,17 +3176,21 @@ def phase_lm_timing() -> dict:
     def composite(x, wg, wi, wo):
         return (F.silu(x @ wg) * (x @ wi)) @ wo
 
+    # bf16 at tinyllama's width; fp32 there (prefill, decode) and at the
+    # ~100M trainer's microbatch (examples), beside the fp32 composite
     for dtype in (bf16, torch.float32):
         tname = str(dtype).removeprefix("torch.")
-        for m in ((4096, 800, 8, 4) if dtype == bf16 else (4096, 8)):
+        shapes = ([(m, d, f) for m in (4096, 800, 8, 4)] if dtype == bf16
+                  else [(4096, d, f), (8, d, f), (512, 768, 2048)])
+        for m, dd, ff_ in shapes:
             row = _timing_row(
-                "fused_ffn", {"m": m, "d": d, "f": f},
-                lambda i, m=m, dtype=dtype: _ffn_inputs(m, d, f, dtype,
-                                                        2 + 4 * i),
+                "fused_ffn", {"m": m, "d": dd, "f": ff_},
+                lambda i, m=m, dd=dd, ff_=ff_, dtype=dtype: _ffn_inputs(
+                    m, dd, ff_, dtype, 2 + 4 * i),
                 ff.fused_swiglu, ff.swiglu_plain, None,
-                nbytes=(2 * m * d + 3 * d * f) * dtype.itemsize,
-                ops=6 * m * d * f, reps=(20 if m > 8 else 200)
-                if dtype == bf16 else (5 if m > 8 else 20),
+                nbytes=(2 * m * dd + 3 * dd * ff_) * dtype.itemsize,
+                ops=6 * m * dd * ff_, reps=(20 if m > 8 else 200)
+                if dtype == bf16 else (10 if m > 512 else 50),
                 dtype=tname, composite=composite)
             if dtype == bf16:
                 rows.setdefault("fused_ffn", row)
@@ -3182,6 +3256,20 @@ def phase_lm_timing() -> dict:
         lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
         nbytes=4 * b * h * s_len * hd * 2, ops=4 * hd * b * h * s_len ** 2,
         reps=50)]
+    # B2's fp32 route at the ~100M trainer's microbatch (examples): B 2, H
+    # 12, Hkv 4, S 256, d 64, causal, beside SDPA in fp32 (GQA)
+    b, h, hkv, s_len, hd = 2, 12, 4, 256, 64
+    rows["flash_attention_fp32"] = [_timing_row(
+        "flash_attention",
+        {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd, "causal": True},
+        lambda i: _attn_inputs(b, h, hkv, s_len, hd, torch.float32,
+                               75 + 3 * i),
+        fa.flash_attention, fa.attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 4,
+        ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100,
+        dtype="float32")]
     rows["backward"] = _backward_timing_rows()
     return rows
 
@@ -3434,8 +3522,8 @@ def main(argv=None) -> int:
             "library_device_ms", "composite_ms", "l2_cold") if k in r}
             for r in lm_rows[f"{lib}_jamba"]]
         kernels[-1]["mla_xlstm"] = [{k: r[k] for k in (
-            "m", "d", "f", "b", "h", "hkv", "s", "mla", "dtype", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "m", "d", "f", "b", "h", "hkv", "s", "mla", "route", "dtype",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "padded_bound_ms", "library_ms", "library_device_ms",
             "sdpa_backends", "sdpa_default_equals", "composite_ms",
             "l2_cold") if k in r}

@@ -5,18 +5,22 @@ GPU.
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 scripts/kernel_variants.py [--only ffn|attn|rms]
+    python3 scripts/kernel_variants.py [--only ffn|ffn32|attn|mla|rms]
 
 Each variant is the kernel's source in ``src/repro_torch/csrc/`` with a
-few lines replaced (``fused_ffn.cu``: its M threshold and stages;
-``flash_attention.cu``: the TMA route's stages and blocks, and probes;
-``rmsnorm.cu``: threads a row, a persistent grid, and probes), built with
+few lines replaced (``fused_ffn.cu``: its M thresholds, stages and splits,
+bf16 (``ffn``) and fp32 (``ffn32``); ``flash_attention.cu``: the TMA
+route's stages and blocks, and probes, at d 64 (``attn``) and at MLA's
+(192, 128) (``mla``); ``rmsnorm.cu``: threads a row, a persistent grid,
+and probes), built with
 the port's nvcc flags into ``build/variants/`` (all variants at once) and
 called through the port's own wrapper.  Every variant is checked against
 the plain torch version (bf16 tolerance 2e-2) before it is timed (CUDA
 events back to back, and device time from ``torch.profiler``) at the
-serving shapes of tinyllama-1.1b; probes (``probe_*``, one part of the loop
-removed) are timed though wrong, to show what each part costs.  B4's
+serving shapes of tinyllama-1.1b (fp32 B3 there and at the ~100M
+trainer's shape, within 2e-5; MLA at deepseek-v2's 8 x 512 prefill);
+probes (``probe_*``, one part of the loop removed) are timed though wrong,
+to show what each part costs.  B4's
 shapes that move more than a few MB are timed over enough input sets to
 exceed twice the 50 MB L2, so that every call reads from device memory.
 The library yardsticks (``F.scaled_dot_product_attention`` with GQA, three
@@ -51,12 +55,12 @@ FFN_VARIANTS = {
 }
 # the TMA route's stages and blocks an SM, and its loop with one part
 # removed (probes: wrong results, timed anyway)
+_ATTN_CFG = ("  static constexpr int BKV = 64, QS = 2, KVS = 3, "
+             "MINB = DQK == 64 ? 3 : 2;")
 ATTN_VARIANTS = {
     "repo": (),
-    "kvs4": (("  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;",
-              "  static constexpr int KVS = 4, MINB = D == 64 ? 3 : 2;"),),
-    "minb2": (("  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;",
-               "  static constexpr int KVS = 3, MINB = 2;"),),
+    "kvs4": ((_ATTN_CFG, _ATTN_CFG.replace("KVS = 3", "KVS = 4")),),
+    "minb2": ((_ATTN_CFG, _ATTN_CFG.replace("DQK == 64 ? 3 : 2", "2")),),
     "probe_no_exp": (("sc[j] = fast_exp2(fmaf(sc[j], sl2, "
                       "-msl[(j >> 1) & 1]));",
                       "sc[j] = fmaf(sc[j], sl2, -msl[(j >> 1) & 1]);"),),
@@ -65,6 +69,46 @@ ATTN_VARIANTS = {
     "probe_no_mask": (("      if (k0 < max(lo[0], lo[1]) || "
                        "k0 + BKV - 1 > min(hi[0], hi[1])) {",
                        "      if (false) {"),),
+}
+# B3's fp32 route: every M on one design (the threshold, kSmallMaxMF32, is
+# where they cross), the tiles' ring depth and the least split depth
+_SG_FMA = ("          fma4(acc[4 * q + e][0], x, b[k & 1][0]);\n"
+           "          fma4(acc[4 * q + e][1], x, b[k & 1][1]);\n")
+FFN32_VARIANTS = {
+    "repo": (),
+    "tiles_only": (("constexpr long long kSmallMaxMF32 = 16;",
+                    "constexpr long long kSmallMaxMF32 = 0;"),),
+    "min_split_256": (("constexpr int kMinSplitK = 128;",
+                       "constexpr int kMinSplitK = 256;"),),
+    "no_64_row_tiles": (("for (const int tm : {16, 8})",
+                         "for (const int tm : {16})"),),
+    "no_splits_in_tiles": (("for (int S = 1; S <= std::max(1, K[i] / "
+                            "kMinSplitK); ++S)",
+                            "for (int S = 1; S <= 1; ++S)"),),
+    "bk16": (("SG_BK = 32, SG_THREADS = 256;",
+              "SG_BK = 16, SG_THREADS = 256;"),),
+    "probe_no_fma": ((_SG_FMA, "          acc[4 * q + e][0][0] += x;\n"
+                               "          acc[4 * q + e][1][0] += "
+                               "b[k & 1][0].x + b[k & 1][1].x;\n"),),
+}
+# B2 at MLA's (192, 128): keys a tile, Q buffers, K/V stages and blocks
+# an SM, and the order of the work items
+_MLA_CFG = ("  static constexpr int BKV = 128, QS = 1, KVS = 2, MINB = 1;\n"
+            "  static constexpr bool HEADS_FIRST = true;")
+
+
+def _mla(bkv, qs, kvs, minb, heads_first=True):
+    return ((_MLA_CFG, f"  static constexpr int BKV = {bkv}, QS = {qs}, "
+             f"KVS = {kvs}, MINB = {minb};\n  static constexpr bool "
+             f"HEADS_FIRST = {'true' if heads_first else 'false'};"),)
+
+
+MLA_VARIANTS = {
+    "repo": (),
+    "q_tiles_first": _mla(128, 1, 2, 1, heads_first=False),
+    "bkv64_qs1_kvs4": _mla(64, 1, 4, 1),
+    "bkv64_qs2_kvs3": _mla(64, 2, 3, 1),
+    "bkv64_qs1_kvs2_minb2": _mla(64, 1, 2, 2),
 }
 
 # B4: threads a row (the repo's choice holds a row of d 2048 in bf16 in one
@@ -127,12 +171,17 @@ RMS_VARIANTS = {
                         "sc[i].e[j] = from_f32<S>(1.f);"),),
     "probe_no_reduce": (("    row_sums<R>(ss, tpr, part);\n", ""),),
 }
-VARIANTS = {"fused_ffn": FFN_VARIANTS, "flash_attention": ATTN_VARIANTS,
-            "rmsnorm": RMS_VARIANTS}
+VARIANTS = {"fused_ffn": FFN_VARIANTS, "fused_ffn_f32": FFN32_VARIANTS,
+            "flash_attention": ATTN_VARIANTS,
+            "flash_attention_mla": MLA_VARIANTS, "rmsnorm": RMS_VARIANTS}
+# the source each set of variants edits
+SOURCE = {"fused_ffn_f32": "fused_ffn",
+          "flash_attention_mla": "flash_attention"}
 
 
 def variant_sources(name: str) -> dict:
-    src = (ROOT / "src/repro_torch/csrc" / f"{name}.cu").read_text()
+    src = (ROOT / "src/repro_torch/csrc"
+           / f"{SOURCE.get(name, name)}.cu").read_text()
     variants = VARIANTS[name]
     out = {}
     for tag, subs in variants.items():
@@ -170,7 +219,8 @@ def build_variants(name: str) -> dict:
                               "build_failed": err[-3000:]}), flush=True)
             continue
         lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in _build._SIGNATURES[name].items():
+        for fn, (argtypes, restype) in _build._SIGNATURES[
+                SOURCE.get(name, name)].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         # ptxas: each kernel's name, then its registers and spills
@@ -282,6 +332,134 @@ def run_ffn() -> None:
     _build._LOADED.pop("fused_ffn", None)
 
 
+def _in_turns(timed: dict, passes: int) -> dict:
+    """name -> (median events ms, median device ms) of each ``(call, reps,
+    device kernels' name, (lib name, lib) or None)`` in ``timed``, timed
+    in ``passes`` turns (each turn times all of them once)."""
+    import statistics
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ffn as ff
+
+    runs = {name: ([], []) for name in timed}
+    for _ in range(passes):
+        for name, (fn, reps, kname, lib) in timed.items():
+            if lib is not None:
+                _build._LOADED[lib[0]] = lib[1]
+                ff._WORKSPACE.clear()  # a variant may split otherwise
+            runs[name][0].append(events_ms(fn, reps))
+            runs[name][1].append(device_ms(fn, max(reps // 2, 3), kname))
+    out = {}
+    for name, (ms, dev) in runs.items():
+        seen = [t for t in dev if t is not None]
+        out[name] = (statistics.median(ms),
+                     statistics.median(seen) if seen else None)
+    return out
+
+
+def run_ffn32(passes: int = 2) -> None:
+    """B3's fp32 variants against the plain version (2e-5) and the fp32
+    composite (three ``torch.matmul``s, TF32 off) at tinyllama-1.1b's
+    width (M 4096, across the small-M switch, decode) and at the ~100M
+    trainer's microbatch (M 512, d 768, f 2048), in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ffn as ff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for m, d, f in ((4096, 2048, 5632), (512, 768, 2048), (8, 2048, 5632),
+                    (16, 2048, 5632), (17, 2048, 5632), (32, 2048, 5632),
+                    (48, 2048, 5632), (256, 2048, 5632), (1024, 2048, 5632)):
+        g = torch.Generator(device="cuda").manual_seed(m)
+        x, wg, wi, wo = (torch.randn(shape, generator=g, device="cuda") * sc
+                         for shape, sc in (((m, d), 1.0), ((d, f), d ** -0.5),
+                                           ((d, f), d ** -0.5),
+                                           ((f, d), f ** -0.5)))
+        want = ff.swiglu_plain(x, wg, wi, wo)
+        reps = 5 if m >= 4096 else 50
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True) if m >= 4096 else None
+        timed = {"composite (3 fp32 matmuls + silu * u)":
+                 (lambda: (F.silu(x @ wg) * (x @ wi)) @ wo, reps, "", None)}
+        rows = {name: {} for name in timed}
+        for tag, (lib, spills) in LIBS["fused_ffn_f32"].items():
+            _build._LOADED["fused_ffn"] = lib
+            ff._WORKSPACE.clear()
+            got = ff.fused_swiglu(x, wg, wi, wo)
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=2e-5, atol=2e-5)
+            rows[tag] = {"ok": ok, "repeat": ok and torch.equal(
+                got, ff.fused_swiglu(x, wg, wi, wo)), "ptxas": spills}
+            if ok or tag.startswith("probe_"):
+                timed[tag] = (lambda: ff.fused_swiglu(x, wg, wi, wo), reps,
+                              "ffn_", ("fused_ffn", lib))
+        times = _in_turns(timed, passes)
+        if smi is not None:  # the SM clock and power while they ran
+            smi.terminate()
+            samples = [[float(v) for v in ln.split(",")]
+                       for ln in smi.communicate()[0].splitlines()
+                       if ln.strip()]
+            print(json.dumps({"kernel": "fused_ffn", "m": m,
+                              "sm_clock_mhz_power_w": samples}), flush=True)
+        for name, row in rows.items():
+            ms, dev = times.get(name, (None, None))
+            print(json.dumps({"kernel": "fused_ffn", "dtype": "float32",
+                              "m": m, "d": d, "f": f, "variant": name,
+                              **row, "ms": ms, "device_ms": dev}),
+                  flush=True)
+    _build._LOADED.pop("fused_ffn", None)
+    ff._WORKSPACE.clear()
+
+
+def run_mla(passes: int = 2) -> None:
+    """B2's (192, 128) variants against the plain version (bf16 2e-2) at
+    deepseek-v2's 8 x 512 prefill (H = Hkv 128, scale 1/sqrt(192)), beside
+    ``F.scaled_dot_product_attention`` on the same tensors and the kernel
+    on q, k, v zero-padded to 256 columns (the route MLA took before), in
+    turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, s_len, scale = 8, 128, 512, 192 ** -0.5
+    q, k = (randn((b, s_len, h, 192), 5 + i).transpose(1, 2)
+            for i in range(2))
+    v = randn((b, s_len, h, 128), 7).transpose(1, 2)
+    padded = [F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)]
+    want = fa.attention_plain(q, k, v, scale=scale)
+    base = LIBS["flash_attention_mla"]["repo"][0]
+    timed = {
+        "F.scaled_dot_product_attention": (
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   scale=scale), 20, "",
+            None),
+        "padded to d 256 (the repo's mma.sync route)": (
+            lambda: fa.flash_attention(*padded, scale=scale), 10,
+            "flash_attn_", ("flash_attention", base))}
+    rows = {name: {} for name in timed}
+    for tag, (lib, spills) in LIBS["flash_attention_mla"].items():
+        _build._LOADED["flash_attention"] = lib
+        ok = close(fa.flash_attention(q, k, v, scale=scale), want)
+        rows[tag] = {"ok": ok, "ptxas": spills}
+        if ok:
+            timed[tag] = (lambda: fa.flash_attention(q, k, v, scale=scale),
+                          20, "flash_attn_", ("flash_attention", lib))
+    times = _in_turns(timed, passes)
+    for name, row in rows.items():
+        ms, dev = times.get(name, (None, None))
+        print(json.dumps({"kernel": "flash_attention", "b": b, "h": h,
+                          "s": s_len, "dqk": 192, "dv": 128,
+                          "variant": name, **row, "ms": ms,
+                          "device_ms": dev}), flush=True)
+    _build._LOADED.pop("flash_attention", None)
+
+
 def run_attn() -> None:
     import torch.nn.functional as F
 
@@ -378,7 +556,8 @@ LIBS: dict = {}
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["ffn", "attn", "rms"], default=None)
+    ap.add_argument("--only", choices=["ffn", "ffn32", "attn", "mla", "rms"],
+                    default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -389,17 +568,17 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
-    names = {"ffn": ["fused_ffn"], "attn": ["flash_attention"],
+    names = {"ffn": ["fused_ffn"], "ffn32": ["fused_ffn_f32"],
+             "attn": ["flash_attention"], "mla": ["flash_attention_mla"],
              "rms": ["rmsnorm"],
-             None: ["fused_ffn", "flash_attention", "rmsnorm"]}[args.only]
+             None: list(VARIANTS)}[args.only]
     for name in names:
         LIBS[name] = build_variants(name)
-    if "fused_ffn" in names:
-        run_ffn()
-    if "flash_attention" in names:
-        run_attn()
-    if "rmsnorm" in names:
-        run_rms()
+    runs = {"fused_ffn": run_ffn, "fused_ffn_f32": run_ffn32,
+            "flash_attention": run_attn, "flash_attention_mla": run_mla,
+            "rmsnorm": run_rms}
+    for name in names:
+        runs[name]()
     return 0
 
 

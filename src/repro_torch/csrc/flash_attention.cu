@@ -10,14 +10,18 @@
 // warp holds 16 query rows, their fp32 output accumulator (16 x d in the
 // m16n8 fragment layout) and the running max and sum of its rows.
 //
-// Layout: q, o are [B, H, S, d] and k, v [B, Hkv, S, d] by strides (the last
-// dim contiguous), so the model's [B, S, H, d] tensors are read and written
-// in place, and query head h reads kv head h / (H / Hkv) (the reference's
-// head order h = kv_head * G + g), with no copy of k or v per query head.
+// Layout: q is [B, H, S, dqk], k [B, Hkv, S, dqk], v [B, Hkv, S, dv] and o
+// [B, H, S, dv] by strides (the last dim contiguous), so the model's [B, S,
+// H, d] tensors are read and written in place, and query head h reads kv
+// head h / (H / Hkv) (the reference's head order h = kv_head * G + g), with
+// no copy of k or v per query head.  Widths (dqk, dv): (d, d) for d in 16,
+// 32, 64, 128, 256, and MLA's (192, 128) (deepseek-v2: 128 + 64 rope
+// columns of q and k, 128 of v), which reads and multiplies no padding.
 // Output: acc / max(l, 1e-30), cast to q's dtype, so a fully masked row
 // gives 0 as the reference's NaN -> 0.
 //
-// bf16, d = 64 and 128 (flash_attn_wgmma_kernel), FlashAttention-3 style:
+// bf16, (64, 64), (128, 128) and (192, 128) (flash_attn_wgmma_kernel),
+// FlashAttention-3 style:
 // persistent blocks of one producer warp and one consumer warpgroup of 64
 // query rows, three blocks an SM (d = 64), each walking work items (a
 // head's 64 query positions) heaviest first.  The producer keeps TMA loads
@@ -27,10 +31,17 @@
 // as the A operand (the accumulator's layout is the A fragment's) and V
 // read MN-major (the transpose bit), and runs the softmax of S_t while
 // P_{t-1} V_{t-1} is on the tensor cores.
-// bf16, other d (flash_attn_bf16_kernel), and d = 64, 128 where the strides
-// or addresses do not allow TMA: the same online softmax on warp-level
-// mma.sync, operands by ldmatrix (.trans for V), 16-byte cp.async copies
-// (element loads where rows are not 16-byte aligned) into two stages.
+// MLA's (192, 128): Q and K tiles of three 64-column swizzled boxes, S = Q
+// K^T in 12 k-steps of m64n128 over 128-key tiles, O 64 x 128 as at d =
+// 128; one Q buffer and two stages (185 KB, one block an SM), and a
+// head's query tiles walked together so that its K and V (335 MB over
+// deepseek's 1,024 heads of an 8 x 512 prefill) are read from device
+// memory about once.
+// bf16, other widths (flash_attn_bf16_kernel), and the TMA route's widths
+// where the strides or addresses do not allow TMA: the same online softmax
+// on warp-level mma.sync, operands by ldmatrix (.trans for V), 16-byte
+// cp.async copies (element loads where rows are not 16-byte aligned) into
+// two stages.
 // Both: the softmax runs in base 2 with scale * log2(e) folded into one
 // FMA before each exponential; masks are applied only on tiles that cross
 // a row's live range (the diagonal, the window's edge, a ragged end);
@@ -46,11 +57,14 @@
 // d = 64 the function must move 37.7 MB (q, k, v and o once, bf16), 11 us
 // at 3.35 TB/s, against 8.6 GFLOP of causal products (8.7 us at 989
 // TFLOP/s); the 33.6 M exponentials of the softmax take the SMs' special
-// function units ~9 us besides (16 a cycle an SM).
+// function units ~9 us besides (16 a cycle an SM).  MLA at deepseek's
+// prefill (B 8, H = Hkv = 128, S 512, (192, 128)): 671 MB, 200 us, against
+// 86 GFLOP of live products (87 us).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
@@ -79,15 +93,17 @@ __device__ __forceinline__ bool live(int q, int kv, int S, int causal,
 
 // 4 warps of 16 query rows a block; keys a tile: 64, two stages.  Q's
 // fragments stay in registers where d <= 64; MINB blocks an SM at least.
+// DQK: the width of q and k; DV: of v and o.
 constexpr int MQ = 64, MKV = 64, MWARPS = 4, MTHREADS = 32 * MWARPS;
-template <int D> struct MmaAttnCfg {
-  static constexpr bool QREG = D <= 64;
-  static constexpr int MINB = D <= 32 ? 4 : D == 64 ? 2 : 1;
+template <int DQK, int DV> struct MmaAttnCfg {
+  static constexpr bool QREG = DQK <= 64;
+  static constexpr int MINB = DQK <= 32 ? 4 : DQK == 64 ? 2 : 1;
 };
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes_mma() {
-  return (size_t)(MQ + 4 * MKV) * (D + 8) * sizeof(bf16);
+  return ((size_t)(MQ + 2 * MKV) * (DQK + 8) + 2 * MKV * (DV + 8)) *
+         sizeof(bf16);
 }
 
 // rows r0 .. r0 + ROWS - 1 of one head (row s at src + s * ss) into dst
@@ -113,17 +129,18 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<DQK, DV>::MINB)
     flash_attn_bf16_kernel(Args a) {
-  constexpr bool QREG = MmaAttnCfg<D>::QREG;
-  constexpr int LD = D + 8;
-  constexpr uint32_t KV_STAGE = MKV * LD * sizeof(bf16);  // bytes
+  constexpr bool QREG = MmaAttnCfg<DQK, DV>::QREG;
+  constexpr int LD = DQK + 8, LDV = DV + 8;
+  constexpr uint32_t K_STAGE = MKV * LD * sizeof(bf16);  // bytes
+  constexpr uint32_t V_STAGE = MKV * LDV * sizeof(bf16);
   const float kInf = __int_as_float(0x7f800000);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + MQ * LD;       // [2][MKV][LD]
-  bf16* Vs = Ks + 2 * MKV * LD;  // [2][MKV][LD]
+  bf16* Vs = Ks + 2 * MKV * LD;  // [2][MKV][LDV]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int S = a.S;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
@@ -138,23 +155,23 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
   const int kv_begin = a.window ? max(0, q0 - a.window + 1) : 0;
   const int t_begin = kv_begin / MKV, t_end = (kv_end + MKV - 1) / MKV;
 
-  load_rows<D, MQ>(Qs, q, a.qs[2], q0, S, a.vec);
+  load_rows<DQK, MQ>(Qs, q, a.qs[2], q0, S, a.vec);
   cp_async_commit();
-  load_rows<D, MKV>(Ks, k, a.ks[2], t_begin * MKV, S, a.vec);
-  load_rows<D, MKV>(Vs, v, a.vs[2], t_begin * MKV, S, a.vec);
+  load_rows<DQK, MKV>(Ks, k, a.ks[2], t_begin * MKV, S, a.vec);
+  load_rows<DV, MKV>(Vs, v, a.vs[2], t_begin * MKV, S, a.vec);
   cp_async_commit();
 
   // each lane's fragment addresses: tiles are then reached by constants
   const int row0 = q0 + 16 * warp;  // this warp's rows: row0 .. row0 + 15
   const uint32_t q_lane = smem_addr(Qs + 16 * warp * LD + frag_off_a(LD));
   const uint32_t k_lane = smem_addr(Ks + frag_off_b_nmajor(LD));
-  const uint32_t v_lane = smem_addr(Vs + frag_off_a(LD));
-  uint32_t qf[QREG ? D / 16 : 1][4];
+  const uint32_t v_lane = smem_addr(Vs + frag_off_a(LDV));
+  uint32_t qf[QREG ? DQK / 16 : 1][4];
   if constexpr (QREG) {
     cp_async_wait<1>();  // Q has landed
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DQK / 16; ++kk)
       ldmatrix_x4(qf[kk], q_lane + 16 * kk * 2);
   }
   // the live keys of this lane's rows g and g + 8, lo <= key <= hi
@@ -166,9 +183,9 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
     lo[hh] = a.window ? r - a.window + 1 : 0;
   }
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   float m_run[2] = {-kInf, -kInf}, l_run[2] = {0.f, 0.f};
@@ -177,10 +194,10 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
   for (int t = t_begin; t < t_end; ++t) {
     const int st = (t - t_begin) & 1;
     if (t + 1 < t_end) {
-      load_rows<D, MKV>(Ks + (st ^ 1) * MKV * LD, k, a.ks[2], (t + 1) * MKV,
-                        S, a.vec);
-      load_rows<D, MKV>(Vs + (st ^ 1) * MKV * LD, v, a.vs[2], (t + 1) * MKV,
-                        S, a.vec);
+      load_rows<DQK, MKV>(Ks + (st ^ 1) * MKV * LD, k, a.ks[2],
+                          (t + 1) * MKV, S, a.vec);
+      load_rows<DV, MKV>(Vs + (st ^ 1) * MKV * LDV, v, a.vs[2],
+                         (t + 1) * MKV, S, a.vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t (and Q) have landed
@@ -189,14 +206,14 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
     const bool dead = (a.causal && k0 > row0 + 15) ||
                       (a.window && k0 + MKV - 1 <= row0 - a.window);
     if (!dead) {
-      const uint32_t kt = k_lane + st * KV_STAGE, vt = v_lane + st * KV_STAGE;
+      const uint32_t kt = k_lane + st * K_STAGE, vt = v_lane + st * V_STAGE;
       float sc[MKV / 8][4];
 #pragma unroll
       for (int j = 0; j < MKV / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         uint32_t af[4];
         if constexpr (QREG) {
 #pragma unroll
@@ -250,7 +267,7 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
           sc[j][c] = p;
         }
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
 #pragma unroll
@@ -263,9 +280,9 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
             pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
             pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
 #pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
+        for (int n = 0; n < DV / 16; ++n) {
           uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, vt + (16 * kk * LD + 16 * n) * 2);
+          ldmatrix_x4_trans(bfr, vt + (16 * kk * LDV + 16 * n) * 2);
           mma_bf16(acc[2 * n], pa, bfr[0], bfr[1]);
           mma_bf16(acc[2 * n + 1], pa, bfr[2], bfr[3]);
         }
@@ -283,7 +300,7 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
     l[hh] = 1.f / fmaxf(l[hh], 1e-30f);
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = row0 + frag_row(2 * hh);
@@ -300,22 +317,37 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<D>::MINB)
     }
 }
 
-// ---- bf16 on TMA + wgmma (d = 64, 128) --------------------------------------
+// ---- bf16 on TMA + wgmma ((64, 64), (128, 128), (192, 128)) --------------
 
 // A block: one producer warp and one consumer warpgroup of 64 query rows,
 // persistent over work items (a head's 64 query positions); keys a tile:
-// 64; K and V in KVS stages; MINB blocks an SM at least.  More resident
+// BKV; Q in QS buffers (2: the next item's Q loads while this one runs), K
+// and V in KVS stages; MINB blocks an SM at least.  More resident
 // warpgroups beat larger tiles and shared ones here (PERF.md): three
-// blocks an SM at d = 64.
-template <int D> struct WgAttnCfg {
-  static constexpr int KVS = 3, MINB = D == 64 ? 3 : 2;
+// blocks an SM at d = 64.  DQK: the width of q and k; DV: of v and o.
+// HEADS_FIRST: items walk a head's query tiles together (heaviest first)
+// instead of every head's last tile first, so that the K and V of the
+// heads in flight stay in the L2 while their query tiles read them: MLA's
+// 128 heads a sequence hold K and V of 335 MB at deepseek's 8 x 512
+// prefill (the other instances' fit the 50 MB L2 at their serving
+// shapes).  (192, 128)'s choices were measured with
+// scripts/kernel_variants.py (PERF.md).
+template <int DQK, int DV> struct WgAttnCfg {
+  static constexpr int BKV = 64, QS = 2, KVS = 3, MINB = DQK == 64 ? 3 : 2;
+  static constexpr bool HEADS_FIRST = false;
 };
-constexpr int WG_THREADS = 128 + 32, WG_BKV = 64;
+template <> struct WgAttnCfg<192, 128> {
+  static constexpr int BKV = 128, QS = 1, KVS = 2, MINB = 1;
+  static constexpr bool HEADS_FIRST = true;
+};
+constexpr int WG_THREADS = 128 + 32;
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes_wg() {
-  return 1024 + (size_t)(2 * 64 + 2 * WgAttnCfg<D>::KVS * WG_BKV) * D * 2 +
-         (2 * WgAttnCfg<D>::KVS + 4) * sizeof(uint64_t);
+  using C = WgAttnCfg<DQK, DV>;
+  return 1024 +
+         (size_t)(C::QS * 64 * DQK + C::KVS * C::BKV * (DQK + DV)) * 2 +
+         (2 * C::KVS + 2 * C::QS) * sizeof(uint64_t);
 }
 
 // q, k, v as 4-d tensor maps (d, s, head, batch), boxes of 64 x 64
@@ -323,19 +355,22 @@ struct AttnMaps {
   CUtensorMap q, k, v;
 };
 
-// Work item i (heaviest first: the last query tiles of every head come
-// first) -> batch, head, first query row and live key tiles
+// Work item i -> batch, head, first query row and live key tiles: the
+// last query tiles of every head first, or (heads_first) each head's query
+// tiles in turn, its last first
 struct AttnItem {
   int b, h, q0, t_begin, t_end;
 };
 
+template <int BKV, bool HEADS_FIRST>
 __device__ __forceinline__ AttnItem attn_item(const Args& a, int B, int i) {
-  constexpr int BKV = WG_BKV;
   const int n_q = (a.S + 63) / 64, bh = B * a.H;
+  const int qt = HEADS_FIRST ? i % n_q : i / bh;
+  const int hb = HEADS_FIRST ? i / n_q : i % bh;
   AttnItem it;
-  it.q0 = (n_q - 1 - i / bh) * 64;
-  it.b = (i % bh) / a.H;
-  it.h = (i % bh) % a.H;
+  it.q0 = (n_q - 1 - qt) * 64;
+  it.b = hb / a.H;
+  it.h = hb % a.H;
   const int kv_end = a.causal ? min(a.S, it.q0 + 64) : a.S;
   const int kv_begin = a.window ? max(0, it.q0 - a.window + 1) : 0;
   it.t_begin = kv_begin / BKV;
@@ -343,25 +378,28 @@ __device__ __forceinline__ AttnItem attn_item(const Args& a, int B, int i) {
   return it;
 }
 
-template <int D>
-__global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<DQK, DV>::MINB)
     flash_attn_wgmma_kernel(const __grid_constant__ AttnMaps maps, Args a,
                             int B, int n_items) {
-  constexpr int BKV = WG_BKV, KVS = WgAttnCfg<D>::KVS, NB = D / 64;
-  constexpr int Q_BYTES = 64 * D * 2, KV_BYTES = BKV * D * 2;
-  // a tile: NB column blocks of 64 d (one TMA box each), 64 rows of 128
-  // bytes a block
-  constexpr int BLK = 64 * 128;
+  using C = WgAttnCfg<DQK, DV>;
+  constexpr int BKV = C::BKV, KVS = C::KVS, QS = C::QS;
+  constexpr int NBQ = DQK / 64, NBV = DV / 64;
+  constexpr int Q_BYTES = 64 * DQK * 2, K_BYTES = BKV * DQK * 2,
+                V_BYTES = BKV * DV * 2;
+  // a tile: NBQ (NBV) column blocks of 64 d (one TMA box each), 64 rows
+  // (Q) or BKV rows (K, V) of 128 bytes a block
+  constexpr int BLK = 64 * 128, BLK_KV = BKV * 128;
   const float kInf = __int_as_float(0x7f800000);
   extern __shared__ __align__(1024) unsigned char attn_smem[];
-  unsigned char* Qs =  // two Q tiles: this item's and the next one's
+  unsigned char* Qs =  // QS Q tiles: this item's (and the next one's)
       attn_smem + ((1024 - (smem_addr(attn_smem) & 1023)) & 1023);
-  unsigned char* Ks = Qs + 2 * Q_BYTES;     // KVS stages
-  unsigned char* Vs = Ks + KVS * KV_BYTES;  // KVS stages
-  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + KVS * KV_BYTES);
+  unsigned char* Ks = Qs + QS * Q_BYTES;   // KVS stages
+  unsigned char* Vs = Ks + KVS * K_BYTES;  // KVS stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + KVS * V_BYTES);
   uint64_t* empty = full + KVS;
-  uint64_t* q_full = empty + KVS;  // 2
-  uint64_t* q_empty = q_full + 2;  // 2
+  uint64_t* q_full = empty + KVS;   // QS
+  uint64_t* q_empty = q_full + QS;  // QS
   const int S = a.S, lane = threadIdx.x & 31;
   const int group = a.H / a.Hkv;
 
@@ -370,7 +408,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 1);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < QS; ++s) {
       mbar_init(&q_full[s], 1);
       mbar_init(&q_empty[s], 1);
     }
@@ -384,26 +422,26 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
     if (lane == 0) {
       int g = 0, n = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-        const AttnItem it = attn_item(a, B, i);
-        const int qb = n & 1, kh = it.h / group;
-        if (n >= 2) mbar_wait(&q_empty[qb], (n / 2 - 1) & 1);
+        const AttnItem it = attn_item<BKV, C::HEADS_FIRST>(a, B, i);
+        const int qb = n % QS, kh = it.h / group;
+        if (n >= QS) mbar_wait(&q_empty[qb], (n / QS - 1) & 1);
         mbar_expect_tx(&q_full[qb], Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < NB; ++c)
+        for (int c = 0; c < NBQ; ++c)
           tma_load_4d(Qs + qb * Q_BYTES + c * BLK, &maps.q, &q_full[qb],
                       64 * c, it.q0, it.h, it.b);
         for (int t = it.t_begin; t < it.t_end; ++t, ++g) {
           const int s = g % KVS;
           if (g >= KVS) mbar_wait(&empty[s], (g / KVS - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * KV_BYTES);
+          mbar_expect_tx(&full[s], K_BYTES + V_BYTES);
 #pragma unroll
-          for (int c = 0; c < NB; ++c) {
-            const int off = s * KV_BYTES + c * BLK;
-            tma_load_4d(Ks + off, &maps.k, &full[s], 64 * c, t * BKV, kh,
-                        it.b);
-            tma_load_4d(Vs + off, &maps.v, &full[s], 64 * c, t * BKV, kh,
-                        it.b);
-          }
+          for (int c = 0; c < NBQ; ++c)
+            tma_load_4d(Ks + s * K_BYTES + c * BLK_KV, &maps.k, &full[s],
+                        64 * c, t * BKV, kh, it.b);
+#pragma unroll
+          for (int c = 0; c < NBV; ++c)
+            tma_load_4d(Vs + s * V_BYTES + c * BLK_KV, &maps.v, &full[s],
+                        64 * c, t * BKV, kh, it.b);
         }
       }
     }
@@ -414,8 +452,8 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
   const float sl2 = a.scale * kLog2e;
   int g = 0, n = 0;
   for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-    const AttnItem it = attn_item(a, B, i);
-    const int qb = n & 1;
+    const AttnItem it = attn_item<BKV, C::HEADS_FIRST>(a, B, i);
+    const int qb = n % QS;
     const unsigned char* Qw = Qs + qb * Q_BYTES;
     const int row0 = it.q0 + 16 * (threadIdx.x / 32);  // this warp's rows
     // the live keys of this thread's rows g and g + 8, lo <= key <= hi
@@ -426,9 +464,9 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
       hi[hh] = a.causal ? min(S - 1, r) : S - 1;
       lo[hh] = a.window ? r - a.window + 1 : 0;
     }
-    float acc[D / 2];  // O, m64nD layout: acc[4 n + c], n8 tile n of d
+    float acc[DV / 2];  // O, m64nDV layout: acc[4 n + c], n8 tile n of d
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    for (int j = 0; j < DV / 2; ++j) acc[j] = 0.f;
     float m_run[2] = {-kInf, -kInf}, l_run[2] = {0.f, 0.f};
     // P of the previous tile (the A fragments of its 16-key steps) and its
     // stage: in flight in O += P V while this tile's softmax runs.  The
@@ -440,17 +478,17 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
       for (int r = 0; r < 4; ++r) p_prev[kk][r] = 0u;
     int st_prev = g % KVS;
     auto issue_pv = [&]() {
-      const unsigned char* Vp = Vs + st_prev * KV_BYTES;
+      const unsigned char* Vp = Vs + st_prev * V_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
-        const uint64_t dv = gmma_desc(Vp + kk * 16 * 128, BLK, 1024);
-        if constexpr (D == 64)
+        const uint64_t dv = gmma_desc(Vp + kk * 16 * 128, BLK_KV, 1024);
+        if constexpr (DV == 64)
           wgmma_rs_m64n64k16<1>(acc, p_prev[kk], dv);
         else
           wgmma_rs_m64n128k16<1>(acc, p_prev[kk], dv);
       }
     };
-    mbar_wait(&q_full[qb], (n / 2) & 1);
+    mbar_wait(&q_full[qb], (n / QS) & 1);
 
     // Each iteration: S_t = Q K_t and O += P_{t-1} V_{t-1} go to the
     // tensor cores back to back; the softmax of S_t runs while P_{t-1}
@@ -461,16 +499,20 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
       const int st = g % KVS;
       mbar_wait(&full[st], (g / KVS) & 1);
       const int k0 = t * BKV;
-      float sc[BKV / 2];  // S, m64n64 layout: sc[4 j + c], n8 tile j
+      float sc[BKV / 2];  // S, m64nBKV layout: sc[4 j + c], n8 tile j
 #pragma unroll
       for (int j = 0; j < BKV / 2; ++j) sc[j] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const int col = (kk % 4) * 32;  // 16 d into the 128-byte rows
-        wgmma_ss_m64n64k16<0>(
-            sc, gmma_desc(Qw + (kk / 4) * BLK + col, 16, 1024),
-            gmma_desc(Ks + st * KV_BYTES + (kk / 4) * BLK + col, 16, 1024));
+        const uint64_t dq = gmma_desc(Qw + (kk / 4) * BLK + col, 16, 1024);
+        const uint64_t dk =
+            gmma_desc(Ks + st * K_BYTES + (kk / 4) * BLK_KV + col, 16, 1024);
+        if constexpr (BKV == 64)
+          wgmma_ss_m64n64k16<0>(sc, dq, dk);
+        else
+          wgmma_ss_m64n128k16<0>(sc, dq, dk);
       }
       wgmma_commit();
       issue_pv();
@@ -514,7 +556,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
       wgmma_wait<0>();  // P_{t-1} V_{t-1} has landed in O
       if (t > it.t_begin && threadIdx.x == 0) mbar_arrive(&empty[st_prev]);
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < DV / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
         p_prev[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
@@ -541,7 +583,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
     }
     bf16* o = (bf16*)a.o + it.b * a.os[0] + it.h * a.os[1];
 #pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn)
+    for (int nn = 0; nn < DV / 8; ++nn)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = row0 + frag_row(2 * hh);
@@ -554,14 +596,15 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<D>::MINB)
   }
 }
 
-// the 4-d tensor map (d, s, heads, batch) of q, k or v, by element strides
+// the 4-d tensor map (d, s, heads, batch) of q, k or v, by element
+// strides, read in boxes of 64 d by `rows` positions
 int attn_map(CUtensorMap* map, const void* ptr, int d, int S, int heads,
-             int B, const long long* bhs) {
+             int B, const long long* bhs, int rows) {
   const uint64_t dims[4] = {(uint64_t)d, (uint64_t)S, (uint64_t)heads,
                             (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)bhs[2] * 2, (uint64_t)bhs[1] * 2,
                                (uint64_t)bhs[0] * 2};
-  const uint32_t box[4] = {64, 64, 1, 1};
+  const uint32_t box[4] = {64, (uint32_t)rows, 1, 1};
   return tma_map_bf16(map, ptr, 4, dims, strides, box);
 }
 
@@ -570,21 +613,22 @@ int attn_map(CUtensorMap* map, const void* ptr, int d, int S, int heads,
 constexpr int FQ = 64, FKV = 64, FPAD = 8, FWarps = 4, FThreads = 32 * FWarps;
 constexpr int LDP = FKV + FPAD;
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes_f32() {
-  return (size_t)((FQ + 2 * FKV) * (D + FPAD) + FWarps * 16 * LDP) *
+  return (size_t)((FQ + FKV) * (DQK + FPAD) + FKV * (DV + FPAD) +
+                  FWarps * 16 * LDP) *
          sizeof(float);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
-  constexpr int LD = D + FPAD;
+  constexpr int LD = DQK + FPAD, LDV = DV + FPAD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Ks = Qs + FQ * LD;
   float* Vs = Ks + FKV * LD;
   const int tid = threadIdx.x, warp = tid >> 5;
-  float* Pw = Vs + FKV * LD + warp * 16 * LDP;
+  float* Pw = Vs + FKV * LDV + warp * 16 * LDP;
   const int S = a.S;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int kh = h / (a.H / a.Hkv);
@@ -594,14 +638,14 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
   const float* v = (const float*)a.v + b * a.vs[0] + kh * a.vs[1];
   float* o = (float*)a.o + b * a.os[0] + h * a.os[1];
 
-  for (int e = tid; e < FQ * D; e += FThreads) {
-    const int r = e / D, c = e % D, s = q0 + r;
+  for (int e = tid; e < FQ * DQK; e += FThreads) {
+    const int r = e / DQK, c = e % DQK, s = q0 + r;
     Qs[r * LD + c] = s < S ? q[s * a.qs[2] + c] : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
@@ -613,11 +657,13 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
   for (int kt = kv_begin / FKV; kt * FKV < kv_end; ++kt) {
     const int k0 = kt * FKV;
     __syncthreads();  // every warp is done with the previous K, V tile
-    for (int e = tid; e < FKV * D; e += FThreads) {
-      const int r = e / D, c = e % D, s = k0 + r;
-      const bool ok = s < S;
-      Ks[r * LD + c] = ok ? k[s * a.ks[2] + c] : 0.f;
-      Vs[r * LD + c] = ok ? v[s * a.vs[2] + c] : 0.f;
+    for (int e = tid; e < FKV * DQK; e += FThreads) {
+      const int r = e / DQK, c = e % DQK, s = k0 + r;
+      Ks[r * LD + c] = s < S ? k[s * a.ks[2] + c] : 0.f;
+    }
+    for (int e = tid; e < FKV * DV; e += FThreads) {
+      const int r = e / DV, c = e % DV, s = k0 + r;
+      Vs[r * LDV + c] = s < S ? v[s * a.vs[2] + c] : 0.f;
     }
     __syncthreads();
 
@@ -627,7 +673,7 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
 #pragma unroll 1
-    for (int kk = 0; kk < D; kk += 16)
+    for (int kk = 0; kk < DQK; kk += 16)
 #pragma unroll
       for (int j = 0; j < FKV / 8; ++j)
         mma_tile_f32(sc[j], Qs + 16 * warp * LD + kk, LD, Ks + 8 * j * LD + kk,
@@ -668,15 +714,15 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
         Pw[frag_row(c) * LDP + 8 * j + frag_col(c)] = p;
       }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
     __syncwarp();
 #pragma unroll 1
     for (int kk = 0; kk < FKV; kk += 16)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        mma_tile_f32(acc[n], Pw + kk, LDP, Vs + kk * LD + 8 * n, LD, 1);
+      for (int n = 0; n < DV / 8; ++n)
+        mma_tile_f32(acc[n], Pw + kk, LDP, Vs + kk * LDV + 8 * n, LDV, 1);
     __syncwarp();
   }
 
@@ -688,7 +734,7 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
     l[hh] = fmaxf(l[hh], 1e-30f);
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int r = row0 + frag_row(c);
@@ -696,50 +742,47 @@ __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_tma(const Args& a, int B, cudaStream_t stream) {
+  constexpr int BKV = WgAttnCfg<DQK, DV>::BKV;
   AttnMaps maps;
-  int err = attn_map(&maps.q, a.q, D, a.S, a.H, B, a.qs);
-  if (err == 0) err = attn_map(&maps.k, a.k, D, a.S, a.Hkv, B, a.ks);
-  if (err == 0) err = attn_map(&maps.v, a.v, D, a.S, a.Hkv, B, a.vs);
+  int err = attn_map(&maps.q, a.q, DQK, a.S, a.H, B, a.qs, 64);
+  if (err == 0) err = attn_map(&maps.k, a.k, DQK, a.S, a.Hkv, B, a.ks, BKV);
+  if (err == 0) err = attn_map(&maps.v, a.v, DV, a.S, a.Hkv, B, a.vs, BKV);
   if (err != 0) return err;
-  constexpr size_t bytes = smem_bytes_wg<D>();
+  constexpr size_t bytes = smem_bytes_wg<DQK, DV>();
   constexpr int threads = WG_THREADS;
-  auto kernel = flash_attn_wgmma_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
+  auto kernel = flash_attn_wgmma_kernel<DQK, DV>;
   // persistent: as many blocks as the card holds at once, each walking the
   // items i = blockIdx.x, blockIdx.x + gridDim.x, ...
-  int dev, sms, per_sm;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, bytes)) != cudaSuccess)
-    return (int)e;
+  KernelFacts facts;
+  if ((err = kernel_facts((const void*)kernel, threads, bytes, &facts)) != 0)
+    return err;
   const long long items = (long long)B * a.H * ((a.S + 63) / 64);
-  if (items > 0x7fffffffLL || per_sm < 1) return (int)cudaErrorInvalidValue;
-  const long long slots = (long long)sms * per_sm;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long slots = (long long)facts.sms * facts.per_sm;
   const int grid = (int)(items < slots ? items : slots);
   kernel<<<grid, threads, bytes, stream>>>(maps, a, B, (int)items);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const Args& a, int B, int dtype, cudaStream_t stream) {
-  if constexpr (D == 64 || D == 128) {
-    if (dtype == DT_BF16 && a.vec) return launch_tma<D>(a, B, stream);
+  if constexpr ((DQK == 64 || DQK == 128) && DV == DQK ||
+                (DQK == 192 && DV == 128)) {
+    if (dtype == DT_BF16 && a.vec) return launch_tma<DQK, DV>(a, B, stream);
   }
   const bool bf = dtype == DT_BF16;
-  void (*kernel)(Args) =
-      bf ? flash_attn_bf16_kernel<D> : flash_attn_f32_kernel<D>;
-  const size_t bytes = bf ? smem_bytes_mma<D>() : smem_bytes_f32<D>();
+  void (*kernel)(Args) = bf ? flash_attn_bf16_kernel<DQK, DV>
+                            : flash_attn_f32_kernel<DQK, DV>;
+  const size_t bytes =
+      bf ? smem_bytes_mma<DQK, DV>() : smem_bytes_f32<DQK, DV>();
   const int bq = bf ? MQ : FQ;
   if ((a.S + bq - 1) / bq > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  KernelFacts facts;
+  const int err = kernel_facts((const void*)kernel, bf ? MTHREADS : FThreads,
+                               bytes, &facts);
+  if (err != 0) return err;
   dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + bq - 1) / bq));
   kernel<<<grid, bf ? MTHREADS : FThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
@@ -749,25 +792,30 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// Head dims the kernel is built for (the wrapper refuses others).
-extern "C" int flash_attention_supports(int d) {
-  return d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
+// The (q/k, v) head widths the kernel is built for (WIDTH_PAIRS in
+// kernels/flash_attention.py): (d, d) for d in 16, 32, 64, 128, 256, and
+// MLA's (192, 128).
+static bool supports(int dqk, int dv) {
+  if (dqk == 192) return dv == 128;
+  return dqk == dv &&
+         (dqk == 16 || dqk == 32 || dqk == 64 || dqk == 128 || dqk == 256);
 }
 
-// q, o: [B, H, S, d]; k, v: [B, Hkv, S, d] with H % Hkv == 0; each given by
-// its b, h, s strides in elements, d contiguous; all of one dtype (DT_F32
-// or DT_BF16).  window == 0 means no window.  One launch on `stream` on the
-// calling thread's current device; returns its cudaError_t (0 on success).
-// S == 0 launches nothing.
+// q: [B, H, S, dqk]; k: [B, Hkv, S, dqk]; v: [B, Hkv, S, dv]; o: [B, H, S,
+// dv], with H % Hkv == 0; each given by its b, h, s strides in elements,
+// the last dim contiguous; all of one dtype (DT_F32 or DT_BF16).  window
+// == 0 means no window.  One launch on `stream` on the calling thread's
+// current device; returns its cudaError_t (0 on success).  S == 0
+// launches nothing.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hkv, int S, int d, long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, long long osb, long long osh, long long oss, int causal,
-    int window, float scale, int dtype, void* stream) {
+    int Hkv, int S, int dqk, int dv, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+    long long vsh, long long vss, long long osb, long long osh, long long oss,
+    int causal, int window, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || window < 0 ||
-      (dtype != DT_BF16 && dtype != DT_F32))
+      (dtype != DT_BF16 && dtype != DT_F32) || !supports(dqk, dv))
     return (int)cudaErrorInvalidValue;
   const long long strides[12] = {qsb, qsh, qss, ksb, ksh, kss,
                                  vsb, vsh, vss, osb, osh, oss};
@@ -777,12 +825,13 @@ extern "C" int flash_attention_launch(
          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
          vec};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 16: return launch<16>(a, B, dtype, st);
-    case 32: return launch<32>(a, B, dtype, st);
-    case 64: return launch<64>(a, B, dtype, st);
-    case 128: return launch<128>(a, B, dtype, st);
-    case 256: return launch<256>(a, B, dtype, st);
+  switch (dqk) {
+    case 16: return launch<16, 16>(a, B, dtype, st);
+    case 32: return launch<32, 32>(a, B, dtype, st);
+    case 64: return launch<64, 64>(a, B, dtype, st);
+    case 128: return launch<128, 128>(a, B, dtype, st);
+    case 192: return launch<192, 128>(a, B, dtype, st);
+    case 256: return launch<256, 256>(a, B, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,14 +50,15 @@ _SIGNATURES = {
         "rmsnorm_launch": ([_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P], _I),
     },
     "fused_ffn": {
-        # x, wg, wi, wo, h, out, m, d, f, dtype, stream
-        "fused_ffn_launch": ([_P] * 6 + [_LL, _I, _I, _I, _P], _I),
+        # x, wg, wi, wo, h, out, ws, ws bytes, m, d, f, dtype, stream
+        "fused_ffn_launch": ([_P] * 7 + [_LL, _LL, _I, _I, _I, _P], _I),
+        # m, d, f, dtype -> workspace bytes (or minus a cudaError_t)
+        "fused_ffn_workspace": ([_LL, _I, _I, _I], _LL),
     },
     "flash_attention": {
-        "flash_attention_supports": ([_I], _I),
-        # q, k, v, o, B, H, Hkv, S, d, the b/h/s strides of q, k, v and o,
-        # causal, window, scale, dtype, stream
-        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_LL] * 12
+        # q, k, v, o, B, H, Hkv, S, dqk, dv, the b/h/s strides of q, k, v
+        # and o, causal, window, scale, dtype, stream
+        "flash_attention_launch": ([_P] * 4 + [_I] * 6 + [_LL] * 12
                                    + [_I, _I, _F, _I, _P], _I),
     },
 }
@@ -209,6 +210,15 @@ def current_stream(index: int) -> int:
     """The raw handle of the current stream of CUDA device ``index``, read
     without building a ``torch.cuda.Stream`` object."""
     return _RAW_STREAM(index)
+
+
+def query(entry, index: int, *args):
+    """``entry(*args)`` on CUDA device ``index`` (made current for the call
+    only if it is not already); its return value."""
+    if _GET_DEVICE() == index:
+        return entry(*args)
+    with torch.cuda.device(index):
+        return entry(*args)
 
 
 def launch(entry, index: int, *args) -> None:

@@ -47,8 +47,9 @@ def _gqa_sum(t: torch.Tensor, hkv: int) -> torch.Tensor:
 
 def attention_backward(q, k, v, o, do, causal: bool = True, window: int = 0,
                        scale: Optional[float] = None):
-    """(dq, dk, dv) of attention over q ``[B, H, S, d]`` and k, v
-    ``[B, Hkv, S, d]`` whose output was ``o``, for the output gradient
+    """(dq, dk, dv) of attention over q ``[B, H, S, dqk]``, k ``[B, Hkv,
+    S, dqk]`` and v ``[B, Hkv, S, dv]`` (``dv`` may differ from ``dqk``)
+    whose output ``[B, H, S, dv]`` was ``o``, for the output gradient
     ``do``; fp32 math, each cast to its input's dtype."""
     H, S, d = q.shape[1], q.shape[2], q.shape[3]
     hkv = k.shape[1]

@@ -73,8 +73,10 @@ def fused_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     """The CUDA kernels over ``x`` ``[M, d]``, ``wg``/``wi`` ``[d, f]`` and
     ``wo`` ``[f, d]``: contiguous, of one dtype (fp32 or bf16), on one CUDA
     device; any ``M``, ``d`` and ``f``.  Allocates the hidden activation
-    ``[M, f]`` in that dtype.  Raises ``ValueError`` on other tensors and
-    ``RuntimeError`` if the kernels cannot be built or launched."""
+    ``[M, f]`` in that dtype, and in fp32 the workspace of the products
+    the kernels split along K (``fused_ffn_workspace``).  Raises
+    ``ValueError`` on other tensors and ``RuntimeError`` if the kernels
+    cannot be built or launched."""
     return fused_swiglu_with_hidden(x, wg, wi, wo)[0]
 
 
@@ -92,11 +94,35 @@ def fused_swiglu_with_hidden(x: torch.Tensor, wg: torch.Tensor,
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if m == 0:
         return out, h
-    _build.launch(_build.load("fused_ffn").fused_ffn_launch, index,
-                  x.data_ptr(), wg.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-                  h.data_ptr(), out.data_ptr(), m, d, f, code)
+    lib = _build.load("fused_ffn")
+    ws_bytes = _workspace_bytes(lib, index, m, d, f, code)
+    ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+          if ws_bytes else None)
+    _build.launch(lib.fused_ffn_launch, index, x.data_ptr(), wg.data_ptr(),
+                  wi.data_ptr(), wo.data_ptr(), h.data_ptr(), out.data_ptr(),
+                  ws.data_ptr() if ws is not None else None, ws_bytes, m, d,
+                  f, code)
     launches += 1
     return out, h
+
+
+# workspace bytes by (device, m, d, f, dtype code): the fp32 route's split
+# partial sums, planned from the device's SM count and the kernels'
+# occupancy, which do not change within a process
+_WORKSPACE: dict = {}
+
+
+def _workspace_bytes(lib, index: int, m: int, d: int, f: int,
+                     code: int) -> int:
+    key = (index, m, d, f, code)
+    n = _WORKSPACE.get(key)
+    if n is None:
+        n = _build.query(lib.fused_ffn_workspace, index, m, d, f, code)
+        if n < 0:
+            raise RuntimeError(f"fused_ffn_workspace failed: cudaError_t "
+                               f"{-n}")
+        _WORKSPACE[key] = n
+    return n
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")

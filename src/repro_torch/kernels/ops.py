@@ -21,8 +21,9 @@ goes through ``local_map``: the kernel (or, on the CPU, its plain
 version) and its ``autograd.Function`` see this rank's local shards, and
 the result is a ``DTensor`` again.  The placements each kernel takes:
 
-* attention: batch and/or heads sharded (k and v as q; heads only where
-  the kv heads split evenly, so each shard keeps its GQA groups);
+* attention: batch and/or heads sharded (k and v as q, whatever their
+  widths; heads only where the kv heads split evenly, so each shard keeps
+  its GQA groups);
 * RMSNorm: rows sharded; the scale replicated, its gradient a partial
   sum over the row shards;
 * SwiGLU: rows sharded with the weights replicated, or the ``ff`` dim of
@@ -165,7 +166,9 @@ def _needs_grad(*tensors) -> bool:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               scale: Optional[float] = None) -> torch.Tensor:
-    """q ``[B, H, S, d]``, k, v ``[B, Hkv, S, d]`` -> ``[B, H, S, d]``."""
+    """q ``[B, H, S, dqk]``, k ``[B, Hkv, S, dqk]``, v ``[B, Hkv, S, dv]``
+    -> ``[B, H, S, dv]`` (``dv`` = ``dqk``, or narrower at MLA's widths:
+    ``flash_attention.WIDTH_PAIRS``; the plain version takes any)."""
     if is_dtensor(q, k, v):
         return _attention_dt(q, k, v, causal, window, scale)
     cuda = _on_cuda("attention", q)

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention import HEAD_DIMS, WIDTH_PAIRS
 from repro_torch.parallel.sharding import is_dtensor, shard
 
 from .config import ModelConfig
@@ -477,10 +477,13 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
 
     The shared rope key is folded into every head: one ``dh + r``-wide q/k
     head and a ``dv``-wide v head, scale ``1/sqrt(dh + r)``.  A fresh
-    prefill of S > 1 tokens goes through ``ops.attention`` with q and k
-    zero-padded from ``dh + r`` and v from ``dv`` to the smallest width the
-    kernel is built for (256 at deepseek's 192 and 128): zero columns add
-    nothing to ``q . k``, and the output's padding columns are dropped.
+    prefill of S > 1 tokens goes through ``ops.attention``: unpadded where
+    the kernel is built for the pair of widths (deepseek's 192 and 128,
+    ``flash_attention.WIDTH_PAIRS``), else with q and k zero-padded from
+    ``dh + r`` and v from ``dv`` to the smallest one width the kernel is
+    built for that covers both (32 at the smoke config's 24 and 16): zero
+    columns add nothing to ``q . k``, and the output's padding columns are
+    dropped.
     The empty cache slots the reference attends over lie at key positions
     past every query and are masked causally, so attending over the S
     in-flight keys is the same function.  Decode and a prefill into a
@@ -515,8 +518,11 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         cache["len"].add_(S)
     wukv = params["wukv"].reshape(kvr, h * (dh + dv))
     scale = 1.0 / math.sqrt(dh + r)
-    width = next((w for w in HEAD_DIMS if w >= max(dh + r, dv)), 0)
-    if fresh and S > 1 and width:
+    pair = (dh + r, dv)
+    width = next((w for w in HEAD_DIMS if w >= max(pair)), 0)
+    if pair in WIDTH_PAIRS:
+        width = 0  # unpadded: the kernel takes the two widths as they are
+    if fresh and S > 1 and (width or pair in WIDTH_PAIRS):
         if cache is not None:  # the reference expands the cache's dtype
             ckv = ckv.to(cache["ckv"].dtype)
             k_rope = k_rope.to(cache["k_rope"].dtype)
@@ -525,12 +531,14 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         kf = torch.cat([kv[..., :dh].to(dt),
                         k_rope.to(dt).expand(B, S, h, r)], dim=-1)
 
-        def padded(t, seq):  # [B, S, h, w] -> [B, h, S, width]
-            t = shard(t, "batch", seq, "heads", None)
-            return _pad(t.to(dt), (0, width - t.shape[-1])).transpose(1, 2)
+        def heads(t, seq):  # [B, S, h, w] -> [B, h, S, width or w]
+            t = shard(t, "batch", seq, "heads", None).to(dt)
+            if width:
+                t = _pad(t, (0, width - t.shape[-1]))
+            return t.transpose(1, 2)
 
-        out = ops.attention(padded(q, "seq"), padded(kf, "seq_kv"),
-                            padded(kv[..., dh:], "seq_kv"), causal=True,
+        out = ops.attention(heads(q, "seq"), heads(kf, "seq_kv"),
+                            heads(kv[..., dh:], "seq_kv"), causal=True,
                             scale=scale)
         out = out[..., :dv].transpose(1, 2).to(kv.dtype)
     else:

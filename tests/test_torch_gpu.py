@@ -17,7 +17,11 @@ machine without them:
 * the jamba (Mamba + MoE), arctic (MoE), deepseek (MLA + MoE) and xlstm
   (mLSTM + sLSTM) smoke forwards on the card against the CPU, B3 at
   jamba's width at decode and at a deepseek expert's, and B2 under MLA's
-  padded contract at deepseek's prefill shape;
+  padded contract at deepseek's prefill shape and at MLA's own (192, 128)
+  widths unpadded, in bf16 and fp32, ragged lengths included;
+* B3's fp32 route across its switch from the streaming kernels to the
+  tiled ones, the tiles' edges and its splits of K, within 2e-5 of the
+  plain version and repeating bit for bit;
 * B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results;
@@ -279,6 +283,58 @@ def test_flash_attention_under_mla_padding(case):
         *args[:3], scale=scale).float(), rtol=tol, atol=tol)
     assert torch.allclose(got[..., :dv].float(), attention_ref(
         *args[3:], scale=scale).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,s", [(8, 128, 512), (2, 16, 200), (2, 4, 130),
+                                   (1, 2, 1), (1, 3, 65)])
+def test_flash_attention_at_mla_widths_unpadded(b, h, s, dtype):
+    """B2 at MLA's own widths (q/k 192, v 128 wide, unpadded; scale
+    1/sqrt(192)): the TMA + wgmma route in bf16, the fp32 route in fp32,
+    against the plain version on the same tensors, ragged lengths
+    included; the output is v's width, laid out as the model's [B, S, H,
+    dv]."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (torch.randn((b, s, h, w), generator=g, device="cuda").to(dt)
+               .transpose(1, 2) for w in (192, 192, 128))
+    got = fa.flash_attention(q, k, v, scale=192 ** -0.5)
+    want = fa.attention_plain(q, k, v, scale=192 ** -0.5)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert got.shape == (b, h, s, 128) and got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,f", [
+    (1, 2048, 5632), (8, 2048, 5632), (16, 2048, 5632), (17, 2048, 5632),
+    (129, 256, 704), (512, 768, 2048), (4, 202, 302), (77, 202, 302),
+    (300, 130, 258), (16, 770, 2046)])
+def test_ffn_fp32_at_its_switch_tile_edges_and_splits(m, d, f):
+    """B3's fp32 route: the streaming kernels up to M 16 and the tiled ones
+    above, across the tiles' edges, at the ~100M trainer's microbatch
+    (its products split along K), and at d and f that are not multiples
+    of 4; within 2e-5 of the plain version (TF32 off), the hidden
+    activation too, and two calls equal bit for bit."""
+    needs_gpu()
+    from repro_torch.kernels import fused_ffn as ff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    x = torch.randn((m, d), generator=g, device="cuda")
+    wg, wi = (torch.randn((d, f), generator=g, device="cuda") * d ** -0.5
+              for _ in range(2))
+    wo = torch.randn((f, d), generator=g, device="cuda") * f ** -0.5
+    got, h = ff.fused_swiglu_with_hidden(x, wg, wi, wo)
+    want, hw = ff.swiglu_plain_with_hidden(x, wg, wi, wo)
+    assert torch.allclose(h, hw, rtol=2e-5, atol=2e-5)
+    assert torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, ff.fused_swiglu(x, wg, wi, wo))
 
 
 RMS_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -615,7 +671,8 @@ def test_int8_error_feedback_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["flash_attention", "fused_swiglu",
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_mla",
+                                  "fused_swiglu", "fused_swiglu_fp32",
                                   "fused_swiglu_with_hidden",
                                   "fused_rmsnorm"])
 def test_kernel_ops_pass_opcheck_on_card_tensors(name):
@@ -635,12 +692,17 @@ def test_kernel_ops_pass_opcheck_on_card_tensors(name):
     args = {
         "flash_attention": (t(2, 8, 96, 64), t(2, 2, 96, 64),
                             t(2, 2, 96, 64), True, 0, None),
+        "flash_attention_mla": (t(2, 8, 96, 192), t(2, 8, 96, 192),
+                                t(2, 8, 96, 128), True, 0, 192 ** -0.5),
         "fused_swiglu": (t(40, 256), t(256, 704), t(256, 704),
                          t(704, 256)),
+        "fused_swiglu_fp32": tuple(a.float() for a in (
+            t(40, 256), t(256, 704), t(256, 704), t(704, 256))),
         "fused_swiglu_with_hidden": (t(40, 256), t(256, 704), t(256, 704),
                                      t(704, 256)),
         "fused_rmsnorm": (t(40, 256), t(256), 1e-5),
     }[name]
+    name = name.removesuffix("_mla").removesuffix("_fp32")
     op = getattr(torch.ops.repro_torch, name).default
     torch.library.opcheck(op, args,
                           test_utils=("test_schema", "test_faketensor"))

@@ -146,11 +146,13 @@ def test_b2_and_b3_launch_through_the_launch_helper(monkeypatch):
 
     calls = []
     lib = SimpleNamespace(fused_ffn_launch="ffn_entry",
-                          flash_attention_launch="attn_entry",
-                          flash_attention_supports=lambda d: 1)
+                          fused_ffn_workspace=lambda m, d, f, code: 0,
+                          flash_attention_launch="attn_entry")
     monkeypatch.setattr(_build, "check_cuda_tensors",
                         lambda name, *t, contiguous=True: 3)
     monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "query",
+                        lambda entry, index, *args: entry(*args))
     monkeypatch.setattr(_build, "launch",
                         lambda entry, index, *args: calls.append(
                             (entry, index, args)))

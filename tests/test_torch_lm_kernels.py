@@ -23,6 +23,7 @@ from test_kernels import ATTN_SWEEP, FFN_SWEEP  # noqa: E402
 from repro.kernels import flash_attention, fused_rmsnorm, fused_swiglu  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.layers import _attend as jax_attend  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fused_ffn as tffn  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -170,6 +171,59 @@ def test_gqa_head_order_matches_jax_attend(window):
                                **TOL["float32"])
 
 
+# v (and the output) narrower than q and k, (B, H, Hkv, S, dqk, dv): the
+# deepseek smoke config's widths (16 + 8 rope, 16) and the full config's
+# (128 + 64 rope, 128), the first under GQA
+NARROW_V = [(2, 4, 2, 40, 24, 16), (1, 2, 2, 70, 192, 128)]
+
+
+@pytest.mark.parametrize("path", ["attention_plain", "ops.attention"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", NARROW_V, ids=["24-16", "192-128"])
+def test_attention_with_narrower_v_matches_reference(shape, dtype, path):
+    """The plain version (directly, and through ``ops`` on CPU tensors)
+    with v narrower than q and k, against the reference's oracle over k
+    and v repeated for each query head; the output has v's width."""
+    B, H, Hkv, S, dqk, dv = shape
+    (jq, tq), (jk, tk) = (both(rand((B, n, S, dqk), 41 + i), dtype)
+                          for i, n in enumerate((H, Hkv)))
+    jv, tv = both(rand((B, Hkv, S, dv), 43), dtype)
+    g = H // Hkv
+    want = jref.attention_ref(jq, jnp.repeat(jk, g, axis=1),
+                              jnp.repeat(jv, g, axis=1), window=17)
+    fn = tfa.attention_plain if path == "attention_plain" else ops.attention
+    got = fn(tq, tk, tv, causal=True, window=17)
+    assert got.dtype == tq.dtype and got.shape == (B, H, S, dv)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("hkv,window", [(4, 0), (2, 7)])
+def test_attention_backward_at_narrower_v_matches_autograd(hkv, window):
+    """``autograd.Attention``'s backward formulas at q/k 24 and v 16 wide
+    (deepseek's smoke widths), against autograd through the plain version,
+    on fp64 leaves (both compute in fp32)."""
+    from repro_torch.kernels import autograd as tag
+
+    B, H, S, dqk, dv = 2, 4, 20, 24, 16
+
+    def leaf(shape, seed):
+        return torch.from_numpy(rand(shape, seed).astype(np.float64)) \
+            .requires_grad_()
+
+    q, k, v = (leaf((B, H, S, dqk), 51), leaf((B, hkv, S, dqk), 52),
+               leaf((B, hkv, S, dv), 53))
+    do = torch.from_numpy(rand((B, H, S, dv), 54).astype(np.float64))
+    out = tag.Attention.apply(q, k, v, True, window, None)
+    assert out.shape == (B, H, S, dv)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(
+        tfa.attention_plain(q, k, v, causal=True, window=window), (q, k, v),
+        do)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL["float32"])
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -189,6 +243,9 @@ def _op_args(name, device):
     return {
         "flash_attention": (t(1, 4, 16, 64), t(1, 2, 16, 64),
                             t(1, 2, 16, 64), True, 0, None),
+        # MLA's widths: v and the output narrower than q and k
+        "flash_attention_mla": (t(1, 4, 16, 192), t(1, 4, 16, 192),
+                                t(1, 4, 16, 128), True, 0, 192 ** -0.5),
         "fused_swiglu": (t(8, 64), t(64, 96), t(64, 96), t(96, 64)),
         "fused_swiglu_with_hidden": (t(8, 64), t(64, 96), t(64, 96),
                                      t(96, 64)),
@@ -196,15 +253,15 @@ def _op_args(name, device):
     }[name]
 
 
-OPS = ["flash_attention", "fused_swiglu", "fused_swiglu_with_hidden",
-       "fused_rmsnorm"]
+OPS = ["flash_attention", "flash_attention_mla", "fused_swiglu",
+       "fused_swiglu_with_hidden", "fused_rmsnorm"]
 
 
 @pytest.mark.parametrize("name", OPS)
 def test_kernel_ops_pass_opcheck_on_meta_tensors(name):
     """The op's schema and fake implementation (the meta inputs go to the
     fake implementation; the op has no CPU implementation)."""
-    op = getattr(torch.ops.repro_torch, name).default
+    op = getattr(torch.ops.repro_torch, name.removesuffix("_mla")).default
     torch.library.opcheck(op, _op_args(name, "meta"),
                           test_utils=("test_schema", "test_faketensor"))
 
@@ -249,6 +306,90 @@ def test_fake_cuda_tensors_take_the_kernel_op_not_the_plain_version(
     assert isinstance(out, FakeTensor) and out.device.type == "cuda"
     assert out.shape == shape and out.dtype == torch.bfloat16
     assert fc.get_total_flops() == flops
+
+
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (192, 128)])
+def test_attention_flop_formula_counts_both_widths(dqk, dv):
+    """The op's FLOP formula: ``Q Kᵀ`` over dqk and ``P V`` over dv, two
+    FLOP a multiply-add, over the live pairs; the fake output is dv
+    wide."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, H, S = 2, 4, 24
+    with FakeTensorMode():
+        q, k = (torch.empty((B, H, S, dqk), device="cuda") for _ in range(2))
+        v = torch.empty((B, H, S, dv), device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            out = tfa.flash_attention_op(q, k, v, True, 5, None)
+    assert out.shape == (B, H, S, dv)
+    pairs = tfa.live_pairs(S, True, 5)
+    assert fc.get_total_flops() == 2 * B * H * pairs * (dqk + dv)
+
+
+def test_attention_op_refuses_widths_it_is_not_built_for():
+    """A (q/k, v) width pair outside ``WIDTH_PAIRS`` raises in the op's
+    fake implementation and in the launcher, before any launch: nothing
+    pads or falls back for it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    assert (192, 128) in tfa.WIDTH_PAIRS and (24, 16) not in tfa.WIDTH_PAIRS
+    with FakeTensorMode():
+        q = torch.empty((1, 2, 8, 24), device="cuda")
+        v = torch.empty((1, 2, 8, 16), device="cuda")
+        with pytest.raises(ValueError, match="widths"):
+            tfa.flash_attention_op(q, q, v, True, 0, None)
+    before = tfa.launches
+    with pytest.raises(ValueError, match="widths"):
+        tfa.flash_attention(torch.zeros((1, 2, 8, 24)),
+                            torch.zeros((1, 2, 8, 24)),
+                            torch.zeros((1, 2, 8, 16)))
+    assert tfa.launches == before
+
+
+def test_mla_on_device_tensors_takes_the_kernel_op_unpadded(monkeypatch):
+    """``mla_apply``'s fresh prefill at deepseek-v2's head widths (q/k 128 +
+    64 rope, v 128; the model narrowed to 2 heads and d 64) on device
+    tensors that hold no data: the attention op gets q and k 192 wide and
+    v 128 wide, unpadded, and no plain version runs.  The tensors are
+    ``meta`` tensors that ``ops`` takes as ``cuda`` ones (each op's meta
+    inputs reach its fake implementation, as fake ``cuda`` ones do): this
+    CPU-only torch cannot index a fake ``cuda`` tensor with ``...`` or
+    ``None`` (it asks for a CUDA device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as tl
+    from repro_torch.models import param_values
+
+    cfg = get_config("deepseek-v2-236b").with_(
+        n_heads=2, d_model=64, q_lora_rank=48, kv_lora_rank=32)
+    assert (cfg.head_dim + cfg.rope_head_dim, cfg.v_dim) == (192, 128)
+    params = tl.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+        param_values(tl.mla_init(torch.Generator().manual_seed(0), cfg)),
+        is_leaf=torch.is_tensor)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on a device tensor")
+
+    for mod, name in ((ops, "attention_plain"), (tfa, "attention_plain"),
+                      (ops, "rmsnorm_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    monkeypatch.setattr(ops, "_on_cuda", lambda name, t: True)
+    calls, inner = [], ops.flash_attention_op
+
+    def recording(q, k, v, causal, window, scale):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                      scale))
+        return inner(q, k, v, causal, window, scale)
+
+    monkeypatch.setattr(ops, "flash_attention_op", recording)
+    B, S = 2, 12
+    x = torch.empty((B, S, cfg.d_model), device="meta")
+    pos = torch.zeros((B, S), dtype=torch.long, device="meta")
+    out, _ = tl.mla_apply(params, cfg, x, pos, fresh=True)
+    assert out.shape == (B, S, cfg.d_model) and out.device.type == "meta"
+    assert calls == [((B, 2, S, 192), (B, 2, S, 192), (B, 2, S, 128),
+                      1.0 / np.sqrt(192))]
 
 
 @pytest.mark.parametrize("s_len,causal,window", [
