@@ -45,6 +45,14 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   1,500 frames: the encoder's attention through the flash-attention
   kernel non-causally, once per encoder layer), and its fp32 smoke config
   on the card against the CPU;
+* tinyllama-1.1b served at the reference's default fp32 cache (every
+  prefill's attention on the flash-attention kernel's fp32 route, the FFNs
+  on the fused SwiGLU's), launches held to the structure, its tokens equal
+  to the CPU's on short prompts; gemma3-4b whole at its published widths
+  (head width 256, a 1,024-key window on 5 of every 6 layers) served with
+  a bf16 cache, 2,048-token prompts included, every attention call on the
+  kernel's d-256 TMA + wgmma route; a 2-layer full-width gemma3-4b fp32
+  forward on the card against the CPU;
 * training: each kernel's autograd Function, its backward formulas
   against autograd through the plain version; tinyllama-1.1b trained whole
   through ``launch.train`` (every parameter's gradient checked, launches
@@ -217,7 +225,10 @@ ATTN_CASES = ((8, 32, 4, 512, 64, True, 0), (4, 32, 4, 200, 64, True, 0),
               # the examples: the ~100M trainer's microbatch (GQA 12 / 4),
               # serve_lm's tinyllama smoke prefill and whisper smoke encoder
               (2, 12, 4, 256, 64, True, 0), (4, 4, 2, 8, 16, True, 0),
-              (2, 4, 2, 12, 16, False, 0))
+              (2, 4, 2, 12, 16, False, 0),
+              # gemma3-4b's prefill (serve_gemma's 4 x 2,048): its global
+              # layers and its local ones (a 1,024-key window), d 256
+              (4, 8, 4, 2048, 256, True, 0), (4, 8, 4, 2048, 256, True, 1024))
 # B2's tile edges (64 queries, 64 keys): every S, with and without a window
 # (40 keys: its edge falls inside tiles), every head dim, and Hkv of 1, H/8
 # and H query heads' worth, causal, at B 1, H 16
@@ -421,31 +432,58 @@ def phase_golden() -> int:
     return total
 
 
-def _device_activity(prof, kernel_names=("finish_batch_kernel",)) -> dict:
-    """What ran on the card in a ``torch.profiler`` trace: the union of
-    the intervals of every device event (kernels and copies), so that
-    overlapping events count once, and the events of each kind (the
-    port's kernels: names containing one of ``kernel_names``)."""
-    from torch.autograd import DeviceType
+# kineto's categories of the device's events and of the host's, as
+# torch.profiler's chrome trace names them
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_EVENT_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver",
+                   "python_function")
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+def _trace_events(prof) -> tuple:
+    """The device's events of a ``torch.profiler`` trace, (name, start µs,
+    duration µs) each, and the host's, (name, (process, thread), start µs,
+    duration µs) each, read from its chrome trace: kineto writes that
+    without the Python post-processing that ``prof.events()`` does (~70 µs
+    of host time an event)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    device, host = [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") in DEVICE_EVENT_CATS:
+            device.append((e["name"], float(e["ts"]), float(e["dur"])))
+        elif e.get("cat") in HOST_EVENT_CATS:
+            host.append((e["name"], (e.get("pid"), e.get("tid")),
+                         float(e["ts"]), float(e["dur"])))
+    return device, host
+
+
+def _device_activity(device, kernel_names=("finish_batch_kernel",)) -> dict:
+    """What ran on the card in a trace's ``device`` events
+    (:func:`_trace_events`): the union of their intervals (kernels and
+    copies), so that overlapping events count once, and the events of each
+    kind (the port's kernels: names containing one of ``kernel_names``)."""
     busy_us, covered_to = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in events):
+    for start, end in sorted((ts, ts + dur) for _, ts, dur in device):
         if end > covered_to:
             busy_us += end - max(start, covered_to)
             covered_to = end
-    kernel = [e for e in events if any(n in e.name for n in kernel_names)]
-    copies = [e for e in events if "Memcpy" in e.name]
+    kernel = [dur for name, _, dur in device
+              if any(n in name for n in kernel_names)]
+    copies = [dur for name, _, dur in device if "Memcpy" in name]
     return {
-        "device_events": len(events),
+        "device_events": len(device),
         "device_busy_ms": busy_us / 1e3,
         "traced_kernel_launches": len(kernel),
-        "traced_kernel_ms": sum(e.time_range.elapsed_us()
-                                for e in kernel) / 1e3,
+        "traced_kernel_ms": sum(kernel) / 1e3,
         "traced_copies": len(copies),
-        "traced_copy_ms": sum(e.time_range.elapsed_us()
-                              for e in copies) / 1e3,
+        "traced_copy_ms": sum(copies) / 1e3,
     }
 
 
@@ -476,7 +514,7 @@ def phase_full_run() -> dict:
                            str(out_torch)])
         wall = time.perf_counter() - t0
     launches = fb.launches
-    activity = _device_activity(prof)
+    activity = _device_activity(_trace_events(prof)[0])
     if rc != 0:
         raise AssertionError(f"full run exited {rc}")
     t0 = time.perf_counter()
@@ -779,7 +817,7 @@ def phase_plan_server() -> dict:
         metrics = fetch_metrics(server.url)
     finally:
         server.close()
-    activity = _device_activity(prof)
+    activity = _device_activity(_trace_events(prof)[0])
     (vec_ga, vec_greedy), batches = _vector_batches(
         (ga, greedy), WORK_DIR / "plan_store_vector")
     want = {id(ga): json.loads(vec_ga.to_json()),
@@ -847,7 +885,7 @@ def phase_zoo() -> dict:
                 "--device", "cuda", "zoo", "build", *where, *ZOO_ARGS])
         build_s = time.perf_counter() - t0
     launches = fb.launches
-    activity = _device_activity(prof)
+    activity = _device_activity(_trace_events(prof)[0])
     if rc != 0:
         raise AssertionError(f"zoo build exited {rc}:\n{build_text}")
     t0 = time.perf_counter()
@@ -933,6 +971,30 @@ XLSTM_ARCH = "xlstm-350m"
 # mla_xlstm_vs_cpu: their smoke configs in fp32, as hybrid_vs_cpu; then
 # launch.serve.main at its defaults on each
 MLA_XLSTM_VS_CPU_ARCHS = (MLA_ARCH, XLSTM_ARCH)
+# serve_gemma: gemma3-4b (hf:google/gemma-3) whole at its published widths
+# (34 layers, d 2560, 8 heads / 4 KV heads of d_head 256, qk-norm, a
+# 1,024-key window on 5 of every 6 layers, GeLU FFN 10,240, vocab 262,144,
+# tied embeddings; ~3.9 B parameters, 7.8 GB in bf16): bf16 weights from
+# seed 0 drawn on the card, a bf16 cache, served as SERVE_RUNS and then 4
+# prompts of 2,048 tokens, whose prefill the window cuts in the local
+# layers (their ring holds 1,024 keys, so they attend over the in-flight
+# ones); every B2 call at (256, 256); the 2,048-token run traced
+GEMMA_ARCH, GEMMA_WINDOW = "gemma3-4b", 1024
+GEMMA_RUNS = SERVE_RUNS + ((4, 2048),)
+# gemma_vs_cpu: gemma3-4b at full width cut to 2 layers with
+# local_global_period 2 (layer 0 windowed, 1,024 keys; layer 1 global), fp32
+# compute, one 1,100-token prompt (past the window), card against CPU from
+# the same weights as serve_vs_cpu: logits within SERVE_VS_CPU_TOL, 8
+# greedy tokens equal
+GEMMA_VS_CPU_LAYERS, GEMMA_VS_CPU_PROMPT = 2, 1100
+# serve_fp32_cache: tinyllama-1.1b as launch.serve makes it, served at the
+# reference's default ServeConfig() cache (fp32), as SERVE_RUNS: the fp32
+# cache promotes every prefill's q, k and v to fp32 (B2's fp32 route) and
+# the residual stream after the first attention layer (B3's fp32 route);
+# then 2 prompts of 64 tokens on the card and on the CPU from the card's
+# weights (the CPU's bf16 products at 8 x 512 would take minutes), tokens
+# equal
+FP32_CACHE_CPU_RUN = (2, 64)
 
 
 # serve_whisper: whisper-base (arXiv:2212.04356) at its published widths
@@ -948,12 +1010,14 @@ WHISPER_ARCH, WHISPER_BATCH, WHISPER_NEW_TOKENS = "whisper-base", 8, 32
 # fp32 parameters and AdamW state, bf16 compute, remat "full", SyntheticLM
 # batches of 8 x 512 in 2 microbatches, lr 3e-3, warmup 2, 6 steps; then
 # again with a checkpoint directory, a save every 3 steps and a failure
-# injected at step 4
+# injected at step 4 (restored from step 3)
 TRAIN_ARGS = ("--device", "cuda", "--arch", "tinyllama-1.1b", "--steps",
               "6", "--batch", "8", "--seq", "512", "--microbatches", "2",
               "--lr", "3e-3", "--warmup", "2", "--seed", "0",
               "--log-every", "1")
-TRAIN_FAIL_ARGS = ("--save-every", "3", "--fail-at", "4")
+TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 3, 4
+TRAIN_FAIL_ARGS = ("--save-every", str(TRAIN_SAVE_EVERY), "--fail-at",
+                   str(TRAIN_FAIL_AT))
 # train_vs_cpu: one step of these smoke configs in fp32, card against CPU:
 # the loss within 1e-5, every gradient within 1e-4 of the CPU's relative
 # to its norm (the backward sums in other orders through every layer), the
@@ -999,17 +1063,12 @@ def _check_tokens(what, tokens, n, new_tokens, vocab) -> None:
 
 
 def _serve(cfg, values, reqs, scfg) -> tuple:
-    """``reqs`` served by ``ServeEngine`` over ``values`` at ``scfg`` with a
-    bf16 cache; its requests' tokens and its groups' stats."""
-    import dataclasses
-
-    import torch
-
+    """``reqs`` served by ``ServeEngine`` over ``values`` at ``scfg``; its
+    requests' tokens and its groups' stats."""
     from repro_torch.launch import serve
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(cfg, values, dataclasses.replace(
-        scfg, cache_dtype=torch.bfloat16))
+    eng = ServeEngine(cfg, values, scfg)
     tokens = eng.generate(reqs)
     _check_tokens(f"{cfg.name} {len(reqs)} x {len(reqs[0].prompt)}", tokens,
                   len(reqs), SERVE_NEW_TOKENS, cfg.vocab)
@@ -1020,12 +1079,17 @@ def _serve_bf16(n: int, prompt_len: int) -> tuple:
     """The requests, weights and serving config ``launch.serve.main`` makes
     for ``n`` prompts of ``prompt_len`` tokens, served with a bf16 cache;
     its requests' tokens and its groups' stats."""
+    import dataclasses
+
+    import torch
+
     from repro_torch.launch import serve
 
     cfg, values, reqs, scfg = serve.make_run(
         SERVE_ARCH, False, n, prompt_len, SERVE_NEW_TOKENS, SERVE_MAX_BATCH,
         SERVE_SEED, "cuda")
-    return _serve(cfg, values, reqs, scfg)
+    return _serve(cfg, values, reqs,
+                  dataclasses.replace(scfg, cache_dtype=torch.bfloat16))
 
 
 def _serve_cli(args, n, new_tokens, vocab) -> tuple:
@@ -1061,7 +1125,8 @@ def _per_layer(cfg, spec) -> dict:
     ``kv_norm`` and ``q_norm`` (with a q LoRA), mLSTM's and sLSTM's
     ``out_norm``; the fused SwiGLU once for a dense FFN, once for each
     expert of a MoE (every expert, every call), once for its shared
-    experts and once for Arctic's dense residual FFN; attention once."""
+    experts and once for Arctic's dense residual FFN (none where the FFN
+    is GeLU, gemma3's: plain torch); attention once."""
     from repro_torch.models.config import (ATTN, ATTN_LOCAL, ATTN_MLA,
                                            FFN_DENSE, FFN_MOE,
                                            FFN_MOE_RESIDUAL, FFN_NONE,
@@ -1070,12 +1135,14 @@ def _per_layer(cfg, spec) -> dict:
     moe = cfg.n_experts + (1 if cfg.n_shared_experts else 0)
     ffn = {FFN_DENSE: 1, FFN_MOE: moe, FFN_MOE_RESIDUAL: moe + 1,
            FFN_NONE: 0}
+    swiglu = cfg.act == "silu"
     attn = spec.mixer in (ATTN, ATTN_LOCAL)
     mla = spec.mixer == ATTN_MLA
     return {"rmsnorm": 1 + (spec.ffn != FFN_NONE) + 2 * attn * cfg.qk_norm
             + mla * (1 + bool(cfg.q_lora_rank))
             + (spec.mixer in (MLSTM, SLSTM)),
-            "fused_ffn": ffn[spec.ffn], "flash_attention": attn + mla}
+            "fused_ffn": ffn[spec.ffn] * swiglu,
+            "flash_attention": attn + mla}
 
 
 def _per_forward(cfg, scanned_times: int = 1) -> dict:
@@ -1101,25 +1168,39 @@ def _structural(cfg, groups) -> dict:
             "flash_attention": per["flash_attention"] * len(groups)}
 
 
-def _trace_tops(prof, n: int = 12) -> dict:
+def _trace_tops(device, host, n: int = 12) -> dict:
     """The device kernels with the most device time and the host ops with
-    the most self time in a ``torch.profiler`` trace: (name, calls,
-    milliseconds) each."""
-    rows = prof.key_averages()
+    the most self time (their time less that of the host events nested in
+    them on their thread) in a trace's events (:func:`_trace_events`):
+    (name, calls, milliseconds) each."""
+    import collections
 
-    def ms(evt, *attrs):
-        for a in attrs:
-            if hasattr(evt, a):
-                return getattr(evt, a) / 1e3
-        return 0.0
-
-    dev = sorted(((e.key[:80], e.count, ms(e, "self_device_time_total",
-                                              "self_cuda_time_total"))
-                  for e in rows), key=lambda r: -r[2])
-    host = sorted(((e.key[:80], e.count, ms(e, "self_cpu_time_total"))
-                   for e in rows), key=lambda r: -r[2])
-    return {"top_device_ms": [r for r in dev[:n] if r[2] > 0],
-            "top_host_self_ms": host[:n]}
+    dev = collections.defaultdict(lambda: [0, 0.0])
+    for name, _, dur in device:
+        dev[name[:80]][0] += 1
+        dev[name[:80]][1] += dur / 1e3
+    calls, self_us = collections.Counter(), collections.Counter()
+    threads = collections.defaultdict(list)
+    for name, thread, ts, dur in host:
+        threads[thread].append((ts, -dur, name[:80]))
+    for evs in threads.values():
+        evs.sort()
+        stack = []  # [end, duration, name, time of the events nested in it]
+        for ts, neg, name in evs:
+            while stack and stack[-1][0] <= ts:
+                _, dur, top, nested = stack.pop()
+                self_us[top] += dur - nested
+            if stack:
+                stack[-1][3] -= neg
+            stack.append([ts - neg, -neg, name, 0.0])
+            calls[name] += 1
+        for _, dur, top, nested in stack:
+            self_us[top] += dur - nested
+    return {"top_device_ms": sorted(([k, c, ms] for k, (c, ms) in dev.items()
+                                     if ms > 0), key=lambda r: -r[2])[:n],
+            "top_host_self_ms": sorted(([k, calls[k], us / 1e3]
+                                        for k, us in self_us.items()),
+                                       key=lambda r: -r[2])[:n]}
 
 
 def _traced(fn) -> tuple:
@@ -1128,7 +1209,6 @@ def _traced(fn) -> tuple:
     (counted by its first device kernel) and device ms (all its device
     kernels), and the heaviest device kernels and host ops."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = [n for lib in LM_KERNELS.values() for n in lib[2]]
@@ -1138,21 +1218,21 @@ def _traced(fn) -> tuple:
         t0 = time.perf_counter()
         result = fn()
         wall = time.perf_counter() - t0
-    activity = _device_activity(prof, tuple(names))
+    device, host = _trace_events(prof)
+    activity = _device_activity(device, tuple(names))
     by_kernel = {lib: 0 for lib in LM_KERNELS}
     ms_by_kernel = {lib: 0.0 for lib in LM_KERNELS}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for lib, (_, _, knames) in LM_KERNELS.items():
-                by_kernel[lib] += knames[0] in e.name
-                if any(n in e.name for n in knames):
-                    ms_by_kernel[lib] += e.time_range.elapsed_us() / 1e3
+    for name, _, dur in device:
+        for lib, (_, _, knames) in LM_KERNELS.items():
+            by_kernel[lib] += knames[0] in name
+            if any(n in name for n in knames):
+                ms_by_kernel[lib] += dur / 1e3
     return result, {
         "traced_wall_s": wall, "traced_launches": by_kernel,
         "traced_kernel_ms_by_lib": ms_by_kernel, **activity,
         "device_idle_share": (1.0 - activity["device_busy_ms"] / 1e3 / wall
                               if activity["device_events"] else None),
-        **_trace_tops(prof)}
+        **_trace_tops(device, host)}
 
 
 def phase_serve() -> dict:
@@ -1278,40 +1358,81 @@ def phase_serve_vs_cpu() -> dict:
     return out
 
 
-def _serve_hybrid(cfg, values, n: int, prompt_len: int) -> tuple:
+def _serve_hybrid(cfg, values, n: int, prompt_len: int,
+                  cache_dtype: str = "bfloat16") -> tuple:
     """``n`` prompts of ``prompt_len`` tokens, made as ``launch.serve``
-    makes them, served over ``values`` as :func:`_serve_bf16` serves them."""
+    makes them, served over ``values`` as :func:`_serve_bf16` serves them,
+    with a cache of ``cache_dtype``."""
+    import torch
+
     from repro_torch.launch import serve
     from repro_torch.serve import ServeConfig
 
     reqs = serve.make_requests(cfg, n, prompt_len, SERVE_NEW_TOKENS,
                                SERVE_SEED)
     return _serve(cfg, values, reqs, ServeConfig(
-        max_batch=SERVE_MAX_BATCH, max_len=prompt_len + SERVE_NEW_TOKENS + 8))
+        max_batch=SERVE_MAX_BATCH, max_len=prompt_len + SERVE_NEW_TOKENS + 8,
+        cache_dtype=getattr(torch, cache_dtype)))
 
 
-def _serve_slice(phase: str, cfg, device: dict, b2_widths=None) -> dict:
-    """``cfg`` at full width (random bf16 weights from seed 0 drawn on the
-    card), served as ``serve`` serves tinyllama: both runs of
-    :data:`SERVE_RUNS` with every kernel's launch count set to 0 before
-    and read after and held to the structure, every B2 call's (q/k, v)
-    widths recorded there (and held to ``b2_widths`` where given), both
-    again warm with the same greedy tokens, then the 8 x 512 run under
-    ``torch.profiler``."""
+def _recording_b2_b3(b2, b3):
+    """Wrappers of B2's and B3's ops that count each call's (dtype, q's
+    shape, Hkv, v's width, window) into ``b2`` and (dtype, M) into ``b3``,
+    installed in ``ops`` (the models' call sites); returns a function that
+    restores them."""
+    from repro_torch.kernels import ops
+
+    inner_b2, inner_b3 = ops.flash_attention_op, ops.fused_swiglu_op
+
+    def rec_b2(q, k, v, causal, window, scale):
+        b2[(str(q.dtype).removeprefix("torch."), tuple(q.shape),
+            k.shape[1], v.shape[-1], window)] += 1
+        return inner_b2(q, k, v, causal, window, scale)
+
+    def rec_b3(x, wg, wi, wo):
+        b3[(str(x.dtype).removeprefix("torch."), x.shape[0])] += 1
+        return inner_b3(x, wg, wi, wo)
+
+    ops.flash_attention_op, ops.fused_swiglu_op = rec_b2, rec_b3
+
+    def restore():
+        ops.flash_attention_op, ops.fused_swiglu_op = inner_b2, inner_b3
+
+    return restore
+
+
+def _b2_call(dtype: str, shape, hkv: int, dv: int) -> str:
+    """One B2 call as :func:`_serve_slice` records it: dtype, q's shape,
+    the KV heads and v's width."""
+    return f"{dtype} {list(shape)} hkv {hkv} dv {dv}"
+
+
+def _serve_slice(phase: str, cfg, device: dict, b2_widths=None,
+                 runs=SERVE_RUNS, traced_run: int = 0, values=None,
+                 cache_dtype: str = "bfloat16") -> dict:
+    """``cfg`` at full width (``values``, or random bf16 weights from seed 0
+    drawn on the card), served as ``serve`` serves tinyllama with a cache
+    of ``cache_dtype``: the ``runs`` (by default both of
+    :data:`SERVE_RUNS`) with every kernel's launch count set to 0 before
+    and read after and held to the structure, every B2 call (dtype, shape,
+    (q/k, v) widths, window) and B3 call (dtype, M) recorded there (the
+    widths held to ``b2_widths`` where given), all again warm with the
+    same greedy tokens, then run ``traced_run`` under ``torch.profiler``."""
     import collections
     import dataclasses
 
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.models import lm_init, param_values
     from repro_torch.models.layers import tree_map
 
-    t0 = time.perf_counter()
-    values = param_values(lm_init(
-        cfg, torch.Generator(device="cuda").manual_seed(SERVE_SEED), "cuda"))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = None
+    if values is None:
+        t0 = time.perf_counter()
+        values = param_values(lm_init(cfg, torch.Generator(
+            device="cuda").manual_seed(SERVE_SEED), "cuda"))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     n_params = 0
 
     def count(t):
@@ -1324,33 +1445,34 @@ def _serve_slice(phase: str, cfg, device: dict, b2_widths=None) -> dict:
     counters = _lm_counters()
     for mod in counters.values():
         mod.launches = 0
-    widths, inner = collections.Counter(), ops.flash_attention_op
-
-    def recording(q, k, v, causal, window, scale):
-        widths[f"{q.shape[-1]}x{v.shape[-1]}"] += 1
-        return inner(q, k, v, causal, window, scale)
-
+    b2, b3 = collections.Counter(), collections.Counter()
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention_op = recording
+    restore = _recording_b2_b3(b2, b3)
     t0 = time.perf_counter()
     try:
-        runs = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+        first = [_serve_hybrid(cfg, values, *r, cache_dtype) for r in runs]
     finally:
-        ops.flash_attention_op = inner
+        restore()
     wall = time.perf_counter() - t0
+    widths, windows = collections.Counter(), collections.Counter()
+    calls = collections.Counter()
+    for (dt, shape, hkv, dv, window), n in b2.items():
+        widths[f"{shape[-1]}x{dv}"] += n
+        windows[window] += n
+        calls[_b2_call(dt, shape, hkv, dv)] += n
     launches = {lib: mod.launches for lib, mod in counters.items()}
-    groups = [g for _, gs in runs for g in gs]
+    groups = [g for _, gs in first for g in gs]
     expected = _structural(cfg, groups)
     for g in groups:
         emit({"phase": phase, "pass": "first", "group": g})
-    warm = [_serve_hybrid(cfg, values, *r) for r in SERVE_RUNS]
+    warm = [_serve_hybrid(cfg, values, *r, cache_dtype) for r in runs]
     for _, gs in warm:
         for g in gs:
             emit({"phase": phase, "pass": "warm", "group": g})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    same_tokens = [t for t, _ in runs] == [t for t, _ in warm]
-    traced, trace = _traced(
-        lambda: _serve_hybrid(cfg, values, *SERVE_RUNS[0]))
+    same_tokens = [t for t, _ in first] == [t for t, _ in warm]
+    traced, trace = _traced(lambda: _serve_hybrid(
+        cfg, values, *runs[traced_run], cache_dtype))
     for g in traced[1]:
         emit({"phase": phase, "pass": "traced", "group": g})
     del values
@@ -1364,18 +1486,20 @@ def _serve_slice(phase: str, cfg, device: dict, b2_widths=None) -> dict:
         "params": n_params, "param_count": cfg.param_count(),
         "weights_gb": weights_gb, "init_s": init_s,
         "seed": SERVE_SEED, "max_batch": SERVE_MAX_BATCH,
-        "new_tokens": SERVE_NEW_TOKENS, "cache_dtype": "bfloat16",
-        "runs": [list(r) for r in SERVE_RUNS], "wall_s": wall,
+        "new_tokens": SERVE_NEW_TOKENS, "cache_dtype": cache_dtype,
+        "runs": [list(r) for r in runs], "wall_s": wall,
         "forwards": sum(1 + g["decode_steps"] for g in groups),
         "launches": launches, "expected_launches": expected,
-        "b2_widths": dict(widths),
+        "b2_widths": dict(widths), "b2_windows": dict(windows),
+        "b2_calls": dict(calls),
+        "b3_calls": {f"{dt} M {m}": n for (dt, m), n in b3.items()},
         "warm": [{k: g[k] for k in ("batch", "prompt_len", "ttft_s",
                                     "prefill_s", "decode_tokens_per_s")}
                  for _, gs in warm for g in gs],
         "peak_memory_gb": peak_gb,
         "tokens_equal_first_warm": same_tokens,
-        "tokens_equal_traced_first": traced[0] == runs[0][0],
-        "traced_run": list(SERVE_RUNS[0]), **trace,
+        "tokens_equal_traced_first": traced[0] == first[traced_run][0],
+        "traced_run": list(runs[traced_run]), **trace,
     }
     emit(out)
     if launches != expected:
@@ -1415,6 +1539,150 @@ def phase_serve_xlstm(device: dict) -> dict:
     from repro_torch.configs import get_config
 
     return _serve_slice("serve_xlstm", get_config(XLSTM_ARCH), device)
+
+
+def phase_serve_gemma(device: dict) -> dict:
+    """gemma3-4b whole at full width (:data:`GEMMA_ARCH`, bf16 weights)
+    through :func:`_serve_slice` on :data:`GEMMA_RUNS`, every B2 call at
+    (256, 256), the windowed layers' calls with gemma's 1,024-key window
+    and the global ones' with none, the 4 x 2,048 run traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ATTN_LOCAL
+
+    cfg = get_config(GEMMA_ARCH).with_(param_dtype="bfloat16")
+    out = _serve_slice("serve_gemma", cfg, device, b2_widths="256x256",
+                       runs=GEMMA_RUNS, traced_run=len(GEMMA_RUNS) - 1)
+    local = sum(s.mixer == ATTN_LOCAL for s in cfg.block_specs())
+    prefills = out["launches"]["flash_attention"] // cfg.n_layers
+    want = {cfg.sliding_window: local * prefills,
+            0: (cfg.n_layers - local) * prefills}
+    if out["b2_windows"] != want:
+        raise AssertionError(f"serve_gemma: B2's windows {out['b2_windows']}"
+                             f" are not {want}")
+    return out
+
+
+def phase_serve_fp32_cache(device: dict) -> dict:
+    """tinyllama-1.1b whole, as ``launch.serve`` makes it (bf16 compute,
+    random weights from seed 0 on the card), through :func:`_serve_slice`
+    at the reference's default cache (fp32), the 8 x 512 run traced:
+    every prefill's B2 call on fp32 q, k, v (the fp32 route)
+    at (8, 32, 4, 512, 64) and (4, 32, 4, 200, 64), B3 in fp32 at M 4,096
+    and 800 in the prefills (the residual stream is fp32 after the first
+    attention layer); last :data:`FP32_CACHE_CPU_RUN` on the card and on
+    the CPU from the card's weights, tokens equal."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import tree_map
+
+    cfg, values, _, _ = serve.make_run(
+        SERVE_ARCH, False, 1, 8, SERVE_NEW_TOKENS, SERVE_MAX_BATCH,
+        SERVE_SEED, "cuda")
+    out = _serve_slice("serve_fp32_cache", cfg, device, values=values,
+                       cache_dtype="float32")
+    card_short = _serve_hybrid(cfg, values, *FP32_CACHE_CPU_RUN,
+                               "float32")[0]
+    on_cpu = tree_map(lambda t: t.cpu(), values)
+    del values
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_short = _serve_hybrid(cfg, on_cpu, *FP32_CACHE_CPU_RUN,
+                              "float32")[0]
+    cpu = {"phase": "serve_fp32_cache", "device": device["nvidia_smi"],
+           "cpu_run": list(FP32_CACHE_CPU_RUN),
+           "cpu_s": time.perf_counter() - t0,
+           "tokens_equal_cpu": card_short == cpu_short}
+    emit(cpu)
+    want_b2 = {_b2_call("float32", (n, cfg.n_heads, plen, cfg.head_dim),
+                        cfg.n_kv_heads, cfg.head_dim): cfg.n_layers
+               for n, plen in SERVE_RUNS}
+    if out["b2_calls"] != want_b2:
+        raise AssertionError(f"serve_fp32_cache: B2 calls {out['b2_calls']},"
+                             f" not {want_b2}")
+    prefill_b3 = {f"float32 M {n * plen}": cfg.n_layers
+                  for n, plen in SERVE_RUNS}
+    if any(out["b3_calls"].get(k) != v for k, v in prefill_b3.items()):
+        raise AssertionError(f"serve_fp32_cache: B3 calls {out['b3_calls']}"
+                             f" lack the fp32 prefills {prefill_b3}")
+    if not cpu["tokens_equal_cpu"]:
+        raise AssertionError("serve_fp32_cache: the card's tokens differ "
+                             "from the CPU's")
+    return {**out, **cpu}
+
+
+def phase_gemma_vs_cpu() -> dict:
+    """gemma3-4b at full width cut to :data:`GEMMA_VS_CPU_LAYERS` layers
+    (``local_global_period`` 2: a windowed layer and a global one) in fp32,
+    on the card through the kernels (B2 at d 256 on its fp32 route, the
+    window cutting the 1,100-token prompt's keys) and on the CPU through
+    their plain versions, from the same weights: the uncached forward's
+    logits within :data:`SERVE_VS_CPU_TOL`, its launches one forward's,
+    and 8 greedy tokens of the serving engine (the default fp32 cache)
+    equal."""
+    import collections
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_apply, lm_init, param_values
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(GEMMA_ARCH).with_(
+        n_layers=GEMMA_VS_CPU_LAYERS, local_global_period=2,
+        compute_dtype="float32")
+    values = param_values(lm_init(cfg, torch.Generator().manual_seed(0),
+                                  "cpu"))
+    on_card = tree_map(lambda t: t.to("cuda"), values)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               GEMMA_VS_CPU_PROMPT)
+    tokens = torch.from_numpy(prompt[None, :].astype(np.int64))
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    b2, b3 = collections.Counter(), collections.Counter()
+    restore = _recording_b2_b3(b2, b3)
+    try:
+        got = lm_apply(on_card, cfg, tokens.cuda())[0].cpu()
+    finally:
+        restore()
+    launches = {lib: mod.launches for lib, mod in counters.items()}
+    want = lm_apply(values, cfg, tokens)[0]
+    err = float((got - want).abs().max())
+    max_logit = float(want.abs().max())
+    close = bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=SERVE_VS_CPU_TOL, atol=SERVE_VS_CPU_TOL)
+    del got, want
+
+    def greedy(vals):
+        eng = ServeEngine(cfg, vals, ServeConfig(
+            max_batch=1, max_len=GEMMA_VS_CPU_PROMPT + 16))
+        return eng.generate([Request(rid=0, prompt=prompt.astype(np.int32),
+                                     max_new_tokens=8)])[0]
+
+    card_tokens, cpu_tokens = greedy(on_card), greedy(values)
+    del on_card
+    torch.cuda.empty_cache()
+    out = {"phase": "gemma_vs_cpu", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_head": cfg.head_dim,
+           "window": cfg.sliding_window, "prompt_len": GEMMA_VS_CPU_PROMPT,
+           "compute_dtype": "float32", "max_abs_err": err,
+           "max_abs_logit": max_logit, "tol": SERVE_VS_CPU_TOL,
+           "close": close,
+           "launches_forward": launches,
+           "b2_calls": {f"{dt} {list(shape)} window {w}": n
+                        for (dt, shape, _, _, w), n in b2.items()},
+           "card_tokens": card_tokens, "cpu_tokens": cpu_tokens}
+    emit(out)
+    if not close or card_tokens != cpu_tokens:
+        raise AssertionError("gemma_vs_cpu: the card's fp32 forward "
+                             "disagrees with the CPU's")
+    if launches != _per_forward(cfg) or sum(b2.values()) != cfg.n_layers:
+        raise AssertionError(f"gemma_vs_cpu: {launches} launches, "
+                             f"not {_per_forward(cfg)}")
+    return out
 
 
 class _RouterChoices:
@@ -1821,7 +2089,7 @@ def phase_train(device: dict) -> dict:
     del state, step_fn
     torch.cuda.empty_cache()
 
-    # the run with a checkpoint and a failure at step 4
+    # the run with a checkpoint and a failure at TRAIN_FAIL_AT
     ckpt = WORK_DIR / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     WORK_DIR.mkdir(parents=True, exist_ok=True)
@@ -1830,10 +2098,11 @@ def phase_train(device: dict) -> dict:
     failed, failed_log = _quiet_train(train.parser().parse_args(
         TRAIN_ARGS + ("--ckpt-dir", str(ckpt)) + TRAIN_FAIL_ARGS))
     failed_wall = time.perf_counter() - t0
-    n_replay = args.steps - 3  # restored from the save at step 3
-    replayed = failed["losses"][-n_replay:]
-    replay_equal = replayed == plain["losses"][3:] and \
-        failed["losses"][:4] == plain["losses"][:4]
+    # restored from the last save before the failure
+    restored_at = TRAIN_FAIL_AT // TRAIN_SAVE_EVERY * TRAIN_SAVE_EVERY
+    replayed = failed["losses"][-(args.steps - restored_at):]
+    replay_equal = replayed == plain["losses"][restored_at:] and \
+        failed["losses"][:TRAIN_FAIL_AT] == plain["losses"][:TRAIN_FAIL_AT]
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
                      if f.is_file())
     t0 = time.perf_counter()
@@ -2760,7 +3029,7 @@ def _lm_calls():
             kw = {"causal": causal, "window": window}
             yield ("flash_attention",
                    {"b": b, "h": h, "hkv": hkv, "s": s, "d": d, **kw,
-                    "sweep": i >= len(ATTN_CASES)}, dtype,
+                    "sweep": i >= len(ATTN_CASES), "repeat": f32}, dtype,
                    lambda a=args, kw=kw: fa.flash_attention_op(
                        *a, kw["causal"], kw["window"], None),
                    lambda a=args, kw=kw: fa.attention_plain(*a, **kw))
@@ -2849,8 +3118,9 @@ def phase_lm_kernels_vs_plain() -> dict:
     deepseek's and xlstm's; B3 at jamba's and deepseek's widths in bf16
     only; B2 under MLA's contract, :data:`MLA_ATTN_CASES`: unpadded at
     (192, 128) in both dtypes, ragged lengths included, padded at the smoke
-    widths in fp32 and to 256 columns once in bf16; B3's fp32 route across
-    its switch and at ragged widths, :data:`FFN_F32_CASES`, each call
+    widths in fp32 and to 256 columns once in bf16; B2 at gemma3-4b's d-256
+    prefill, windowed and not; B3's fp32 route across its switch and at
+    ragged widths, :data:`FFN_F32_CASES`; each fp32 call of B2 and B3
     repeated and held to repeat bit for bit) and at ragged ones, in bf16
     (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
     ``tests/test_kernels.py``.  Returns the largest absolute error of each
@@ -2881,11 +3151,13 @@ def phase_lm_kernels_vs_plain() -> dict:
         ok = finite and got.shape == want.shape and torch.allclose(
             got.float(), want.float(), rtol=tol, atol=tol)
         if repeat is not None:
-            # two calls of B3's fp32 route: equal bit for bit, split K or
-            # not (the workspace bytes say whether a product was split)
+            # two calls of B2's and B3's fp32 routes: equal bit for bit,
+            # B3's split K or not (the workspace bytes say whether a
+            # product was split)
             case["repeats_bitwise"] = torch.equal(got, repeat)
-            case["workspace_bytes"] = ff._WORKSPACE.get(
-                (got.get_device(), case["m"], case["d"], case["f"], 0))
+            if name == "fused_ffn":
+                case["workspace_bytes"] = ff._WORKSPACE.get(
+                    (got.get_device(), case["m"], case["d"], case["f"], 0))
             ok = ok and case["repeats_bitwise"]
         key = (name, tname)
         errs[key] = max(errs.get(key, 0.0), err)
@@ -2922,7 +3194,6 @@ def _profiled_ms(fn, reps: int, names=("",), sets=((),)) -> "float | None":
     as in :func:`_events_ms`.  ``None`` when the profiler shows no device
     time for them."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     keep = [None] * len(sets) if len(sets) > 1 else None
@@ -2939,12 +3210,11 @@ def _profiled_ms(fn, reps: int, names=("",), sets=((),)) -> "float | None":
                 keep[i % len(keep)] = out
         torch.cuda.synchronize()
     per_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and any(n in e.name
-                                                    for n in names):
-            c = per_name.setdefault(e.name, [0, 0.0])
+    for name, _, dur in _trace_events(prof)[0]:
+        if any(n in name for n in names):
+            c = per_name.setdefault(name, [0, 0.0])
             c[0] += 1
-            c[1] += e.time_range.elapsed_us()
+            c[1] += dur
     total_us = sum(us / n * max(1, round(n / reps))
                    for n, us in per_name.values())
     return total_us / 1e3 if total_us > 0 else None
@@ -3021,19 +3291,14 @@ def _bound(nbytes, ops, dtype="bfloat16") -> tuple:
             "bytes" if bytes_s >= ops_s else "operations")
 
 
-def _sdpa_backends(q, k, v, scale) -> dict:
-    """Which backends of ``F.scaled_dot_product_attention`` take causal
-    attention over ``q``, ``k``, ``v``, and which of them the default call
-    took: those whose output equals the default call's bit for bit."""
+def _sdpa_backends(call) -> dict:
+    """Which backends of ``F.scaled_dot_product_attention`` take ``call()``
+    (one call of it), and which of them the default call took: those whose
+    output equals the default call's bit for bit."""
     import warnings
 
     import torch
-    import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def call():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              scale=scale)
 
     default = call()
     runs, same = [], []
@@ -3109,7 +3374,8 @@ def _mla_timing_rows() -> dict:
                     *a[i0:i0 + 3], scale=scale),
                 sdpa, nbytes=nbytes, ops=2 * (dqk + dv) * pairs,
                 reps=20 if b > 1 else 200, dtype=tname,
-                extra={**_sdpa_backends(*first[3:], scale),
+                extra={**_sdpa_backends(
+                    lambda: sdpa(None, None, None, *first[3:])),
                        "padded_bound_ms": _bound(
                            padded_bytes, 4 * width * pairs, tname)[0]}))
         del first
@@ -3144,14 +3410,18 @@ def phase_lm_timing() -> dict:
     here only; the port never calls them.  Then the same at
     jamba-v0.1-52b's shapes (d 4096, d_ff 14,336, Hkv 8, d 128), at
     deepseek-v2-236b's and xlstm-350m's (:func:`_mla_timing_rows`), B2 at
-    whisper-base's encoder shape (non-causal, S 1,500) and the backward
-    formulas at the train step's shapes (:func:`_backward_timing_rows`).
+    whisper-base's encoder shape (non-causal, S 1,500), its fp32 route at
+    the ~100M trainer's and tinyllama's 8 x 512 shapes, its d-256 route at
+    gemma3-4b's prefill beside the mma.sync route it replaced
+    (:func:`_gemma_timing_rows`) and the backward formulas at the train
+    step's shapes (:func:`_backward_timing_rows`).
     Returns the 8 x 512 prefill row of each kernel, with B3's and B4's
     decode rows, each kernel's jamba rows (``<lib>_jamba``), deepseek /
     xlstm rows (``<lib>_mla_xlstm``), the fp32 rows of B3 (tinyllama's
-    prefill and decode, the ~100M trainer's microbatch) and of B2 (the
-    trainer's) (``<lib>_fp32``), B2's whisper row
-    (``flash_attention_whisper``) and the backward rows (``backward``, by
+    prefill and decode, the ~100M trainer's microbatch) and of B2
+    (tinyllama's 8 x 512, the trainer's) (``<lib>_fp32``), B2's whisper
+    and gemma rows (``flash_attention_whisper``,
+    ``flash_attention_gemma``) and the backward rows (``backward``, by
     kernel)."""
     import torch
     import torch.nn.functional as F
@@ -3270,7 +3540,161 @@ def phase_lm_timing() -> dict:
         nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 4,
         ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100,
         dtype="float32")]
+    # and at tinyllama-1.1b's 8 x 512 prefill under the reference's fp32
+    # cache (serve_fp32_cache): B 8, H 32, Hkv 4, d 64
+    b, h, hkv, s_len, hd = 8, 32, 4, 512, 64
+    rows["flash_attention_fp32"].insert(0, _timing_row(
+        "flash_attention",
+        {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd, "causal": True},
+        lambda i: _attn_inputs(b, h, hkv, s_len, hd, torch.float32,
+                               77 + 3 * i),
+        fa.flash_attention, fa.attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 4,
+        ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=30,
+        dtype="float32"))
+    rows["flash_attention_gemma"] = _gemma_timing_rows()
     rows["backward"] = _backward_timing_rows()
+    return rows
+
+
+def _launched(fn, part: str) -> list:
+    """The names of the device kernels holding ``part`` that ``fn()``
+    launched, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({name for name, _, _ in _trace_events(prof)[0]
+                   if part in name})
+
+
+# gemma3-4b's prefill as serve_gemma's 4 x 2,048 run hands it to B2: B 4,
+# H 8, Hkv 4, S 2,048, d 256, causal, bf16; the mma.sync route's rows are
+# 260 elements apart (520 bytes, not whole 16-byte units: TMA cannot read
+# them), the TMA + wgmma route's 256 (the model's layout)
+GEMMA_PREFILL = (4, 8, 4, 2048, 256)
+GEMMA_ROUTES = (("tma_wgmma", 256, "flash_attn_wgmma_kernel"),
+                ("mma_sync", 260, "flash_attn_bf16_kernel"))
+
+
+def _gemma_attn_inputs(i: int, width: int) -> tuple:
+    """The ``i``-th set of q, k, v at :data:`GEMMA_PREFILL`, ``[B, H, S,
+    256]`` views of ``[B, S, H, width]`` rows."""
+    import torch
+
+    b, h, hkv, s_len, hd = GEMMA_PREFILL
+    return tuple(_randn((b, s_len, n, width), torch.bfloat16,
+                        81 + 3 * i + j)[..., :hd].transpose(1, 2)
+                 for j, n in enumerate((h, hkv, hkv)))
+
+
+def _gemma_route_kernels() -> None:
+    """Print, as one JSON object, the device kernels B2 launched at
+    :data:`GEMMA_PREFILL` for each of :data:`GEMMA_ROUTES`, without and
+    with gemma's window (run in a process of its own by
+    :func:`_gemma_timing_rows`)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for route, width, _ in GEMMA_ROUTES:
+        ins = _gemma_attn_inputs(0, width)
+        out[route] = sorted({n for window in (0, GEMMA_WINDOW)
+                             for n in _launched(lambda w=window: fa.
+                                                flash_attention(*ins,
+                                                                window=w),
+                                                "flash_attn")})
+    print(json.dumps(out))
+
+
+def _gemma_timing_rows() -> list:
+    """B2 at gemma3-4b's prefill (:data:`GEMMA_PREFILL`), its global
+    layers' (no window) and its local layers' (a 1,024-key window), bf16:
+    the TMA + wgmma route as the model calls it, and the mma.sync route it
+    replaced on rows TMA cannot read (element loads), each row failing
+    unless its route's kernel launched (traced in a process of its own:
+    the full script's profiler drops device events, ROADMAP §B.10); the
+    model's rows beside ``F.scaled_dot_product_attention`` (GQA): causal
+    on its flash backend, and with the window as a boolean band mask (key
+    <= query, key > query - 1,024) on the backend torch picks; and the
+    bound from the live pairs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._gemma_route_kernels()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"gemma's route check exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    launched = json.loads(proc.stdout.strip().splitlines()[-1])
+    for route, _, kernel in GEMMA_ROUTES:
+        names = launched[route]
+        if not names or any(kernel not in n for n in names):
+            raise AssertionError(f"gemma's {route} rows launched {names}, "
+                                 f"not {kernel}")
+
+    b, h, hkv, s_len, hd = GEMMA_PREFILL
+
+    def sdpa(q, k, v):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+    pos = torch.arange(s_len, device="cuda")
+    back = pos[:, None] - pos[None, :]
+    band = (back >= 0) & (back < GEMMA_WINDOW)
+
+    def sdpa_band(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+
+    rows = []
+    for window in (0, GEMMA_WINDOW):
+        pairs = b * h * fa.live_pairs(s_len, True, window)
+        if window:
+            first = _gemma_attn_inputs(0, hd)
+            want = fa.attention_plain(*first, window=window)
+            err = float((sdpa_band(*first).float() - want.float()).abs()
+                        .max())
+            if not err <= LM_TOL["bfloat16"]:
+                raise AssertionError(f"SDPA with the band mask is {err} "
+                                     f"off the windowed plain version")
+            library = {"sdpa_mask": "band", "sdpa_max_abs_err": err,
+                       **_sdpa_backends(lambda: sdpa_band(*first))}
+            del first, want
+        else:  # pinned by sdpa_kernel, which raises if it cannot run
+            library = {"sdpa_mask": "is_causal",
+                       "sdpa_backends": ["FLASH_ATTENTION"]}
+        for route, width, _ in GEMMA_ROUTES:
+            rows.append(_timing_row(
+                "flash_attention",
+                {"b": b, "h": h, "hkv": hkv, "s": s_len, "d": hd,
+                 "causal": True, "window": window, "route": route,
+                 "row_elements": width},
+                lambda i, width=width: _gemma_attn_inputs(i, width),
+                lambda q, k, v, w=window: fa.flash_attention(
+                    q, k, v, window=w),
+                lambda q, k, v, w=window: fa.attention_plain(
+                    q, k, v, window=w),
+                # SDPA on the model's rows only: its flash kernel faults
+                # (misaligned address) on rows 520 bytes apart
+                None if width != hd else sdpa_band if window else sdpa,
+                nbytes=(2 * b * h + 2 * b * hkv) * s_len * hd * 2,
+                ops=4 * hd * pairs, reps=20,
+                extra={"kernels": launched[route],
+                       **(library if width == hd else {})}))
     return rows
 
 
@@ -3281,8 +3705,9 @@ def _backward_row(lib, shape, make, fn, plain, library, composite, nbytes,
     version (``plain_ms``), through the library call (``library_ms``) and
     through a composite of library calls (``composite_ms``), each over a
     graph built once (``retain_graph``) with the same output gradient; the
-    device time of the formulas from the profiler; the bound from the
-    bytes the backward must move and its operations at the bf16 rate."""
+    device time of the formulas and of the library call's backward from
+    the profiler; the bound from the bytes the backward must move and its
+    operations at the bf16 rate."""
     import torch
 
     ins = [t.detach().requires_grad_() for t in make()]
@@ -3311,6 +3736,8 @@ def _backward_row(lib, shape, make, fn, plain, library, composite, nbytes,
            "device_ms": _profiled_ms(kernel, reps),
            **{f"{name}_ms": _events_ms(back, max(reps // 2, 3)) if back
               else None for name, back in rest.items()},
+           "library_device_ms": _profiled_ms(rest["library"], reps)
+           if rest["library"] else None,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
     emit(row)
@@ -3368,13 +3795,15 @@ def _backward_timing_rows() -> dict:
 PHASES = ("kernel_vs_plain", "golden", "full_run", "planner_trace",
           "plan_server", "zoo", "timing", "lm_kernels_vs_plain", "serve", "serve_vs_cpu", "serve_hybrid",
           "hybrid_vs_cpu", "serve_mla", "serve_xlstm", "mla_xlstm_vs_cpu",
-          "serve_whisper", "whisper_vs_cpu", "train", "train_vs_cpu",
+          "serve_whisper", "whisper_vs_cpu", "serve_fp32_cache",
+          "serve_gemma", "gemma_vs_cpu", "train", "train_vs_cpu",
           "plan_h100", "examples", "sharded", "dryrun", "lm_timing")
 # the phases whose LM launches the kernels line sums: those that run a
 # model at full width (whole or a full-width slice), and the examples,
 # which serve smoke configs and train the ~100M config
 MAIN_PATHS = ("serve", "serve_hybrid", "serve_mla", "serve_xlstm",
-              "serve_whisper", "train", "examples", "sharded", "dryrun")
+              "serve_whisper", "serve_fp32_cache", "serve_gemma", "train",
+              "examples", "sharded", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -3402,8 +3831,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     os.chdir(ROOT)  # the golden file: workload is a repo-relative path
 
+    # each phase's start, for the seconds it took (the script's time limit)
+    t_start, started = time.perf_counter(), {}
+
     def run(name):
-        return only is None or name in only
+        if only is None or name in only:
+            started[name] = time.perf_counter()
+            return True
+        return False
 
     device = phase_device()
     phase_build()
@@ -3446,6 +3881,12 @@ def main(argv=None) -> int:
         served["serve_whisper"] = phase_serve_whisper(device)
     if run("whisper_vs_cpu"):
         phase_whisper_vs_cpu()
+    if run("serve_fp32_cache"):
+        served["serve_fp32_cache"] = phase_serve_fp32_cache(device)
+    if run("serve_gemma"):
+        served["serve_gemma"] = phase_serve_gemma(device)
+    if run("gemma_vs_cpu"):
+        phase_gemma_vs_cpu()
     if run("train"):
         served["train"] = phase_train(device)
     if run("train_vs_cpu"):
@@ -3461,6 +3902,11 @@ def main(argv=None) -> int:
     if run("dryrun"):
         served["dryrun"] = phase_dryrun(device)
     lm_rows = phase_lm_timing() if run("lm_timing") else None
+    ends = [*list(started.values())[1:], time.perf_counter()]
+    emit({"phase": "timings", "total_s": ends[-1] - t_start,
+          "build_s": next(iter(started.values()), ends[-1]) - t_start,
+          "seconds": {name: end - t for (name, t), end in zip(
+              started.items(), ends)}})
     if only is not None:
         print(f"ran only {sorted(only)}: no kernels or ok line", flush=True)
         return 0
@@ -3532,13 +3978,14 @@ def main(argv=None) -> int:
         kernels[-1]["backward"] = {k: bwd[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "library_ms",
             "composite_ms", "bound_ms", "bound_by")}
-        for extra in ("whisper", "fp32"):
+        for extra in ("whisper", "fp32", "gemma"):
             if f"{lib}_{extra}" in lm_rows:
                 kernels[-1][extra] = [{k: r[k] for k in (
-                    "m", "d", "f", "b", "h", "hkv", "s", "causal", "ms",
-                    "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_device_ms", "composite_ms",
-                    "l2_cold") if k in r} for r in lm_rows[f"{lib}_{extra}"]]
+                    "m", "d", "f", "b", "h", "hkv", "s", "causal", "window",
+                    "route", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms",
+                    "sdpa_backend", "composite_ms", "l2_cold") if k in r}
+                    for r in lm_rows[f"{lib}_{extra}"]]
         if f"{lib}_decode" in lm_rows:
             dec = lm_rows[f"{lib}_decode"]
             kernels[-1]["decode"] = {k: dec[k] for k in (

@@ -5,20 +5,26 @@ GPU.
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 scripts/kernel_variants.py [--only ffn|ffn32|attn|mla|rms]
+    python3 scripts/kernel_variants.py \
+        [--only ffn|ffn32|attn|mla|attn256|attn32|rms]
 
 Each variant is the kernel's source in ``src/repro_torch/csrc/`` with a
 few lines replaced (``fused_ffn.cu``: its M thresholds, stages and splits,
 bf16 (``ffn``) and fp32 (``ffn32``); ``flash_attention.cu``: the TMA
-route's stages and blocks, and probes, at d 64 (``attn``) and at MLA's
-(192, 128) (``mla``); ``rmsnorm.cu``: threads a row, a persistent grid,
-and probes), built with
+route's stages and blocks, and probes, at d 64 (``attn``), at MLA's
+(192, 128) (``mla``) and at gemma3-4b's d 256 (``attn256``: beside the
+mma.sync route it replaced), and the fp32 route's query tiles
+(``attn32``); ``rmsnorm.cu``: threads a row, a persistent grid, and
+probes), built with
 the port's nvcc flags into ``build/variants/`` (all variants at once) and
 called through the port's own wrapper.  Every variant is checked against
 the plain torch version (bf16 tolerance 2e-2) before it is timed (CUDA
 events back to back, and device time from ``torch.profiler``) at the
 serving shapes of tinyllama-1.1b (fp32 B3 there and at the ~100M
-trainer's shape, within 2e-5; MLA at deepseek-v2's 8 x 512 prefill);
+trainer's shape, within 2e-5; MLA at deepseek-v2's 8 x 512 prefill;
+d 256 at gemma3-4b's prefill, with and without its 1,024-key window;
+fp32 B2 at tinyllama's 8 x 512 and the ~100M trainer's shape, within
+2e-5);
 probes (``probe_*``, one part of the loop removed) are timed though wrong,
 to show what each part costs.  B4's
 shapes that move more than a few MB are timed over enough input sets to
@@ -171,12 +177,51 @@ RMS_VARIANTS = {
                         "sc[i].e[j] = from_f32<S>(1.f);"),),
     "probe_no_reduce": (("    row_sums<R>(ss, tpr, part);\n", ""),),
 }
+# B2 at d 256: the TMA route's stages, and the mma.sync route it replaced
+# (d 256 taken out of the TMA route's widths)
+_D256_CFG = "  static constexpr int BKV = 64, QS = 1, KVS = 3, MINB = 1;\n" \
+    "  static constexpr bool HEADS_FIRST = false;\n};\nconstexpr int WG"
+_TMA_WIDTHS = "(DQK == 64 || DQK == 128 || DQK == 256) && DV == DQK"
+ATTN256_VARIANTS = {
+    "repo": (),
+    "kvs2": ((_D256_CFG, _D256_CFG.replace("KVS = 3", "KVS = 2")),),
+    "heads_first": ((_D256_CFG, _D256_CFG.replace("= false", "= true")),),
+    "mma_sync_route": ((_TMA_WIDTHS,
+                        "(DQK == 64 || DQK == 128) && DV == DQK"),),
+}
+# B2's fp32 route: every shape on 64-row or on 32-row query tiles (the repo
+# takes 32 where 64 would leave block slots empty), and a probe without
+# the exponentials
+_F32_TILES = "    return blocks < (long long)facts.sms * facts.per_sm\n"
+ATTN32_VARIANTS = {
+    "repo": (),
+    "rows64_only": ((_F32_TILES, "    return false\n"),),
+    "rows32_only": ((_F32_TILES, "    return true\n"),),
+    "probe_no_exp": (("          sc[i][j] = fast_exp2(fmaf(sc[i][j], sl2, "
+                      "-msl));",
+                      "          sc[i][j] = fmaf(sc[i][j], sl2, -msl);"),),
+    # the loops over d (S) and over keys (O += P V) unrolled further
+    "unroll_d_full": (("#pragma unroll 4\n      for (int d = 0; d < DQK; "
+                       "d += 4) {",
+                       "#pragma unroll\n      for (int d = 0; d < DQK; "
+                       "d += 4) {"),),
+    "unroll_keys_16": (("#pragma unroll 4\n      for (int key = 0; key < "
+                        "BKV; ++key) {",
+                        "#pragma unroll 16\n      for (int key = 0; key < "
+                        "BKV; ++key) {"),),
+    # 32-key tiles at every width: 63 KB at d 64, three blocks an SM
+    "bkv32": (("BKV = DQK + DV >= 256 ? 32 : 64", "BKV = 32"),),
+}
 VARIANTS = {"fused_ffn": FFN_VARIANTS, "fused_ffn_f32": FFN32_VARIANTS,
             "flash_attention": ATTN_VARIANTS,
-            "flash_attention_mla": MLA_VARIANTS, "rmsnorm": RMS_VARIANTS}
+            "flash_attention_mla": MLA_VARIANTS,
+            "flash_attention_d256": ATTN256_VARIANTS,
+            "flash_attention_f32": ATTN32_VARIANTS, "rmsnorm": RMS_VARIANTS}
 # the source each set of variants edits
 SOURCE = {"fused_ffn_f32": "fused_ffn",
-          "flash_attention_mla": "flash_attention"}
+          "flash_attention_mla": "flash_attention",
+          "flash_attention_d256": "flash_attention",
+          "flash_attention_f32": "flash_attention"}
 
 
 def variant_sources(name: str) -> dict:
@@ -283,6 +328,21 @@ def device_ms(fn, reps: int, name: str, sets=((),)):
     total = sum(us / n * max(1, round(n / reps))
                 for n, us in per_name.values())
     return total / 1e3 if total > 0 else None
+
+
+def launched(fn, name: str) -> list:
+    """The names of the device kernels containing ``name`` that ``fn()``
+    launched, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name})
 
 
 def close(got, want) -> bool:
@@ -460,6 +520,126 @@ def run_mla(passes: int = 2) -> None:
     _build._LOADED.pop("flash_attention", None)
 
 
+def run_attn256(passes: int = 2) -> None:
+    """B2's d-256 variants against the plain version (bf16 2e-2) at
+    gemma3-4b's prefill (B 4, H 8, Hkv 4, S 2,048, causal), without and
+    with its local layers' 1,024-key window, beside
+    ``F.scaled_dot_product_attention`` (GQA; causal on its flash backend,
+    the window as a boolean band mask on the backend torch picks) and the
+    repo's kernel on rows TMA cannot read (q, k, v sliced out of rows 260
+    elements apart, not whole 16-byte units: the mma.sync route with
+    element loads, held to launch ``flash_attn_bf16_kernel``), in turns."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, s_len = 4, 8, 4, 2048
+    q, k, v = (randn((b, s_len, n, 256), 5 + i).transpose(1, 2)
+               for i, n in enumerate((h, hkv, hkv)))
+    wide = [torch.zeros((b, s_len, t.shape[1], 260), dtype=t.dtype,
+                        device="cuda") for t in (q, k, v)]
+    for w, t in zip(wide, (q, k, v)):
+        w[..., :256] = t.transpose(1, 2)
+    q2, k2, v2 = (w[..., :256].transpose(1, 2) for w in wide)
+    base = LIBS["flash_attention_d256"]["repo"][0]
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+    pos = torch.arange(s_len, device="cuda")
+    back = pos[:, None] - pos[None, :]
+    band = (back >= 0) & (back < 1024)
+
+    def sdpa_band():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+
+    _build._LOADED["flash_attention"] = base
+    names = launched(lambda: fa.flash_attention(q2, k2, v2), "flash_attn")
+    if not names or any("flash_attn_bf16_kernel" not in n for n in names):
+        raise AssertionError(f"rows TMA cannot read launched {names}")
+    for window in (0, 1024):
+        want = fa.attention_plain(q, k, v, window=window)
+        timed = {
+            "repo on rows TMA cannot read (mma.sync, element loads)": (
+                lambda w=window: fa.flash_attention(q2, k2, v2, window=w),
+                10, "flash_attn_bf16_kernel", ("flash_attention", base))}
+        if window:
+            timed["F.scaled_dot_product_attention (band mask)"] = (
+                sdpa_band, 20, "", None)
+        else:
+            timed["F.scaled_dot_product_attention (flash)"] = (sdpa, 20, "",
+                                                               None)
+        rows = {name: {} for name in timed}
+        for tag, (lib, spills) in LIBS["flash_attention_d256"].items():
+            _build._LOADED["flash_attention"] = lib
+            ok = close(fa.flash_attention(q, k, v, window=window), want)
+            rows[tag] = {"ok": ok, "ptxas": spills}
+            if ok:
+                timed[tag] = (lambda w=window: fa.flash_attention(
+                    q, k, v, window=w), 20, "flash_attn_",
+                    ("flash_attention", lib))
+        times = _in_turns(timed, passes)
+        for name, row in rows.items():
+            ms, dev = times.get(name, (None, None))
+            print(json.dumps({"kernel": "flash_attention", "b": b, "h": h,
+                              "hkv": hkv, "s": s_len, "d": 256,
+                              "window": window, "variant": name, **row,
+                              "ms": ms, "device_ms": dev}), flush=True)
+    _build._LOADED.pop("flash_attention", None)
+
+
+def run_attn32(passes: int = 2) -> None:
+    """B2's fp32 variants against the plain version (2e-5, TF32 off) at
+    tinyllama-1.1b's 8 x 512 prefill under the fp32 cache (B 8, H 32, Hkv
+    4, d 64) and at the ~100M trainer's microbatch (B 2, H 12, Hkv 4, S
+    256), beside ``F.scaled_dot_product_attention`` in fp32 (GQA, the
+    backend torch picks), in turns; each variant called twice and held to
+    repeat bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for b, h, hkv, s_len in ((8, 32, 4, 512), (2, 12, 4, 256)):
+        g = torch.Generator(device="cuda").manual_seed(s_len)
+        q, k, v = (torch.randn((b, s_len, n, 64), generator=g,
+                               device="cuda").transpose(1, 2)
+                   for n in (h, hkv, hkv))
+        want = fa.attention_plain(q, k, v)
+        timed = {"F.scaled_dot_product_attention (fp32)": (
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 50, "", None)}
+        rows = {name: {} for name in timed}
+        for tag, (lib, spills) in LIBS["flash_attention_f32"].items():
+            _build._LOADED["flash_attention"] = lib
+            got = fa.flash_attention(q, k, v)
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=2e-5, atol=2e-5)
+            rows[tag] = {"ok": ok, "repeat": ok and torch.equal(
+                got, fa.flash_attention(q, k, v)),
+                "max_abs_err": float((got - want).abs().max()),
+                "ptxas": spills}
+            if ok or tag.startswith("probe_"):
+                timed[tag] = (lambda: fa.flash_attention(q, k, v), 50,
+                              "flash_attn_", ("flash_attention", lib))
+        times = _in_turns(timed, passes)
+        for name, row in rows.items():
+            ms, dev = times.get(name, (None, None))
+            print(json.dumps({"kernel": "flash_attention", "dtype":
+                              "float32", "b": b, "h": h, "hkv": hkv,
+                              "s": s_len, "d": 64, "variant": name, **row,
+                              "ms": ms, "device_ms": dev}), flush=True)
+    _build._LOADED.pop("flash_attention", None)
+
+
 def run_attn() -> None:
     import torch.nn.functional as F
 
@@ -556,7 +736,8 @@ LIBS: dict = {}
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["ffn", "ffn32", "attn", "mla", "rms"],
+    ap.add_argument("--only", choices=["ffn", "ffn32", "attn", "mla",
+                                       "attn256", "attn32", "rms"],
                     default=None)
     args = ap.parse_args(argv)
     import torch
@@ -570,13 +751,15 @@ def main(argv=None) -> int:
     print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
     names = {"ffn": ["fused_ffn"], "ffn32": ["fused_ffn_f32"],
              "attn": ["flash_attention"], "mla": ["flash_attention_mla"],
-             "rms": ["rmsnorm"],
+             "attn256": ["flash_attention_d256"],
+             "attn32": ["flash_attention_f32"], "rms": ["rmsnorm"],
              None: list(VARIANTS)}[args.only]
     for name in names:
         LIBS[name] = build_variants(name)
     runs = {"fused_ffn": run_ffn, "fused_ffn_f32": run_ffn32,
             "flash_attention": run_attn, "flash_attention_mla": run_mla,
-            "rmsnorm": run_rms}
+            "flash_attention_d256": run_attn256,
+            "flash_attention_f32": run_attn32, "rmsnorm": run_rms}
     for name in names:
         runs[name]()
     return 0

@@ -5,10 +5,10 @@
 // (launched by flash_attention).  That kernel ran the grid (B*H, S/128,
 // S/128) with the kv axis in order on one core, carrying (acc, m, l) in VMEM
 // scratch across kv steps, and needed S % 128 == 0 and q, k, v of one head
-// count.  Here one block owns (batch * head, a tile of queries) and loops
-// over the live key tiles itself, so the carry lives in registers: each
-// warp holds 16 query rows, their fp32 output accumulator (16 x d in the
-// m16n8 fragment layout) and the running max and sum of its rows.
+// count.  Here one block (or warpgroup) owns (batch * head, a tile of
+// queries) and loops over the live key tiles itself, so the carry lives in
+// registers: the fp32 output accumulator of its rows and their running max
+// and sum.
 //
 // Layout: q is [B, H, S, dqk], k [B, Hkv, S, dqk], v [B, Hkv, S, dv] and o
 // [B, H, S, dv] by strides (the last dim contiguous), so the model's [B, S,
@@ -20,46 +20,57 @@
 // Output: acc / max(l, 1e-30), cast to q's dtype, so a fully masked row
 // gives 0 as the reference's NaN -> 0.
 //
-// bf16, (64, 64), (128, 128) and (192, 128) (flash_attn_wgmma_kernel),
-// FlashAttention-3 style:
-// persistent blocks of one producer warp and one consumer warpgroup of 64
-// query rows, three blocks an SM (d = 64), each walking work items (a
-// head's 64 query positions) heaviest first.  The producer keeps TMA loads
-// of Q and of K, V tiles (64 keys, 128-byte swizzled) in flight through a
-// ring of three stages with mbarriers; the consumer runs wgmma: S = Q K^T
-// from shared memory (K read K-major), then O += P V with P in registers
-// as the A operand (the accumulator's layout is the A fragment's) and V
-// read MN-major (the transpose bit), and runs the softmax of S_t while
-// P_{t-1} V_{t-1} is on the tensor cores.
-// MLA's (192, 128): Q and K tiles of three 64-column swizzled boxes, S = Q
-// K^T in 12 k-steps of m64n128 over 128-key tiles, O 64 x 128 as at d =
-// 128; one Q buffer and two stages (185 KB, one block an SM), and a
-// head's query tiles walked together so that its K and V (335 MB over
-// deepseek's 1,024 heads of an 8 x 512 prefill) are read from device
-// memory about once.
-// bf16, other widths (flash_attn_bf16_kernel), and the TMA route's widths
-// where the strides or addresses do not allow TMA: the same online softmax
-// on warp-level mma.sync, operands by ldmatrix (.trans for V), 16-byte
-// cp.async copies (element loads where rows are not 16-byte aligned) into
-// two stages.
-// Both: the softmax runs in base 2 with scale * log2(e) folded into one
-// FMA before each exponential; masks are applied only on tiles that cross
-// a row's live range (the diagonal, the window's edge, a ragged end);
-// tiles dead for a whole block are never loaded; query tiles are issued
-// heaviest first (the last causal tile has the most keys).
+// Routes, by dtype and widths:
+// - bf16 (64, 64), (128, 128), (192, 128) and (256, 256), where TMA can
+//   read the strides and addresses (flash_attn_wgmma_kernel),
+//   FlashAttention-3 style: persistent blocks of one producer warp and one
+//   consumer warpgroup of 64 query rows, each walking work items (a head's
+//   64 query positions) heaviest first.  The producer keeps TMA loads of Q
+//   and of K, V tiles (128-byte swizzled boxes of 64 columns) in flight
+//   through a ring of stages with mbarriers; the consumer runs wgmma: S = Q
+//   K^T from shared memory (K read K-major), then O += P V with P in
+//   registers as the A operand (the accumulator's layout is the A
+//   fragment's) and V read MN-major (the transpose bit), and runs the
+//   softmax of S_t while P_{t-1} V_{t-1} is on the tensor cores.  d 64:
+//   three blocks an SM, three stages of 64 keys.  MLA's (192, 128): Q and K
+//   tiles of three boxes, 128-key tiles (m64n128 S), one Q buffer and two
+//   stages (185 KB, one block an SM), a head's query tiles walked together
+//   so that its K and V (335 MB over deepseek's 1,024 heads of an 8 x 512
+//   prefill) are read from device memory about once.  d 256 (gemma3): Q, K
+//   and V tiles of four boxes (32 KB each at 64 rows), 64-key tiles, one Q
+//   buffer and three stages (224 KB, one block an SM); O is a 64 x 256 fp32
+//   accumulator, 128 registers a thread, beside S's 32; P V is two m64n128
+//   products a 16-key step.
+// - bf16, d 16 and 32, and any width whose strides or addresses TMA cannot
+//   read (flash_attn_bf16_kernel): the same online softmax on warp-level
+//   mma.sync, 4 warps of 16 query rows, operands by ldmatrix (.trans for
+//   V), 16-byte cp.async copies (element loads where rows are not 16-byte
+//   aligned) into two stages.
+// - fp32, every width (flash_attn_f32_kernel): full fp32 FMAs on the CUDA
+//   cores (no TF32), register-blocked: each lane holds a block of S (TM
+//   query rows x BKV / 16 keys) and of O (TM rows x dv / 16 columns), reads
+//   its operands from shared memory as float4 (conflict-free: rows padded to
+//   an odd number of 16-byte units), K and V arrive by 16-byte cp.async
+//   into two stages, P goes through a per-warp shared tile laid out so that
+//   a lane reads its rows of a key as float4.  64 query rows a block, or 32
+//   where 64 would leave the card's block slots empty (the ~100M trainer's
+//   microbatch).  No atomics: every call repeats bit for bit.
+// All: the softmax runs in base 2 with scale * log2(e) folded into one FMA
+// before each exponential; masks are applied only on tiles that cross a
+// row's live range (the diagonal, the window's edge, a ragged end); tiles
+// dead for a whole block are never loaded; query tiles are issued heaviest
+// first (the last causal tile has the most keys).
 //
-// fp32 route (flash_attn_f32_kernel): 4 warps and 64 queries a block,
-// scalar FMAs in full fp32 (tile_mma.cuh), P through a per-warp shared
-// tile; it exists for checking against fp32 references and for fp32
-// models, not for speed.
-//
-// Bound: bytes at the serving shapes.  At B = 8, H = 32, Hkv = 4, S = 512,
-// d = 64 the function must move 37.7 MB (q, k, v and o once, bf16), 11 us
-// at 3.35 TB/s, against 8.6 GFLOP of causal products (8.7 us at 989
-// TFLOP/s); the 33.6 M exponentials of the softmax take the SMs' special
-// function units ~9 us besides (16 a cycle an SM).  MLA at deepseek's
-// prefill (B 8, H = Hkv = 128, S 512, (192, 128)): 671 MB, 200 us, against
-// 86 GFLOP of live products (87 us).
+// Bound: at tinyllama's 8 x 512 prefill (B 8, H 32, Hkv 4, S 512, d 64) the
+// function must move 37.7 MB in bf16 (q, k, v and o once), 11 us at 3.35
+// TB/s, against 8.6 GFLOP of causal products (8.7 us at 989 TFLOP/s); in
+// fp32 (the reference's default fp32 cache) 75.5 MB, 23 us, against the
+// same 8.6 GFLOP at 67 TFLOP/s outside the tensor cores, 128 us: the fp32
+// route is bound by its FMAs.  MLA at deepseek's prefill (B 8, H = Hkv =
+// 128, S 512, (192, 128)): 671 MB, 200 us, against 86 GFLOP of live
+// products (87 us).  gemma3-4b's prefill (B 4, H 8, Hkv 4, S 2,048, d 256,
+// causal): 68.7 GFLOP, 69 us, against 100 MB, 30 us; its local layers'
+// 1,024-key window leaves ~3/4 of the pairs (51 us).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +81,6 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
@@ -81,13 +91,8 @@ struct Args {
   int H, Hkv, S, causal, window;
   float scale;
   long long qs[3], ks[3], vs[3], os[3];  // strides of b, h, s (elements)
-  int vec;  // 16-byte aligned rows: cp.async and paired stores allowed
+  int vec;  // 16-byte aligned rows: cp.async and vector stores allowed
 };
-
-__device__ __forceinline__ bool live(int q, int kv, int S, int causal,
-                                     int window) {
-  return kv < S && (!causal || kv <= q) && (!window || kv > q - window);
-}
 
 // ---- bf16 on mma.sync (d = 16, 32, 256; any d where TMA cannot read) ------
 
@@ -317,7 +322,7 @@ __global__ void __launch_bounds__(MTHREADS, MmaAttnCfg<DQK, DV>::MINB)
     }
 }
 
-// ---- bf16 on TMA + wgmma ((64, 64), (128, 128), (192, 128)) --------------
+// ---- bf16 on TMA + wgmma ((64, 64), (128, 128), (192, 128), (256, 256)) --
 
 // A block: one producer warp and one consumer warpgroup of 64 query rows,
 // persistent over work items (a head's 64 query positions); keys a tile:
@@ -339,6 +344,14 @@ template <int DQK, int DV> struct WgAttnCfg {
 template <> struct WgAttnCfg<192, 128> {
   static constexpr int BKV = 128, QS = 1, KVS = 2, MINB = 1;
   static constexpr bool HEADS_FIRST = true;
+};
+// d 256: a 64-key K and V stage is 64 KB, so one Q buffer and three
+// stages fill 224 KB (one block an SM; two stages ran 1.3x slower at
+// gemma3's prefill, PERF.md); gemma3's K and V (32 MB at B 4, S 2,048)
+// stay in the L2 whatever the order
+template <> struct WgAttnCfg<256, 256> {
+  static constexpr int BKV = 64, QS = 1, KVS = 3, MINB = 1;
+  static constexpr bool HEADS_FIRST = false;
 };
 constexpr int WG_THREADS = 128 + 32;
 
@@ -482,10 +495,16 @@ __global__ void __launch_bounds__(WG_THREADS, WgAttnCfg<DQK, DV>::MINB)
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
         const uint64_t dv = gmma_desc(Vp + kk * 16 * 128, BLK_KV, 1024);
-        if constexpr (DV == 64)
+        if constexpr (DV == 64) {
           wgmma_rs_m64n64k16<1>(acc, p_prev[kk], dv);
-        else
+        } else {
           wgmma_rs_m64n128k16<1>(acc, p_prev[kk], dv);
+          // d 256: columns 128 .. 255 are the next two 64-column boxes
+          if constexpr (DV == 256)
+            wgmma_rs_m64n128k16<1>(
+                acc + 64, p_prev[kk],
+                gmma_desc(Vp + 2 * BLK_KV + kk * 16 * 128, BLK_KV, 1024));
+        }
       }
     };
     mbar_wait(&q_full[qb], (n / QS) & 1);
@@ -608,138 +627,266 @@ int attn_map(CUtensorMap* map, const void* ptr, int d, int S, int heads,
   return tma_map_bf16(map, ptr, 4, dims, strides, box);
 }
 
-// ---- fp32 -------------------------------------------------------------------
+// ---- fp32: register-blocked SIMT tiles ------------------------------------
 
-constexpr int FQ = 64, FKV = 64, FPAD = 8, FWarps = 4, FThreads = 32 * FWarps;
-constexpr int LDP = FKV + FPAD;
+// 4 warps a block; a warp owns 2 TM query rows, and its lane = 16 rg + kg
+// holds rows rg + 2 i (i < TM) of them: their S over keys kg + 16 j (j <
+// TN) of a tile, and their O over dv / 16 columns (groups of VW adjacent
+// columns, 16 VW apart), so that the 16 lanes of a half warp own whole rows
+// and the row max and sum are reduced by 4 shuffles.  Keys a tile: BKV, 32
+// where q/k and v together are 256 wide or more (two stages of 64 keys
+// would not fit beside Q).  Q, K and V tiles are s-major in shared memory
+// (as the model lays them out, so cp.async copies rows unchanged), Q and K
+// rows padded to an odd number of 16-byte units: the 8 lanes of a quarter
+// warp read 8 different keys' float4 in 8 different banks, and its 8 rows'
+// float4 of Q as one broadcast.  P goes through the warp's own tile Ps[key]
+// [2 TM + 4], a lane's TM rows of a key adjacent (read as TM / 4 float4).
+constexpr int FThreads = 128;
+template <int DQK, int DV, int TM> struct F32Cfg {
+  static constexpr int BKV = DQK + DV >= 256 ? 32 : 64, BQ = 8 * TM;
+  static constexpr int TN = BKV / 16, LDQ = DQK + 4, LDV = DV,
+                       LDP = 2 * TM + 4;
+  static constexpr int OC = DV / 16, VW = OC >= 4 ? 4 : OC, NG = OC / VW;
+};
 
-template <int DQK, int DV>
+template <int DQK, int DV, int TM>
 constexpr size_t smem_bytes_f32() {
-  return (size_t)((FQ + FKV) * (DQK + FPAD) + FKV * (DV + FPAD) +
-                  FWarps * 16 * LDP) *
+  using C = F32Cfg<DQK, DV, TM>;
+  return (size_t)(C::BQ * C::LDQ + 2 * C::BKV * (C::LDQ + C::LDV) +
+                  4 * C::BKV * C::LDP) *
          sizeof(float);
 }
 
-template <int DQK, int DV>
+// rows r0 .. r0 + ROWS - 1 of one head (row s at src + s * ss) into dst
+// [ROWS][LD], zero past S: 16-byte cp.async where rows are 16-byte aligned
+template <int D, int LD, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long long ss, int r0, int S,
+                                              int vec) {
+  if (vec) {
+    constexpr int CH = D / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * CH; i += FThreads) {
+      const int r = i / CH, c = (i % CH) * 4, s = r0 + r;
+      const bool ok = s < S;
+      cp_async16(dst + r * LD + c, ok ? src + s * ss + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += FThreads) {
+      const int r = i / D, c = i % D, s = r0 + r;
+      dst[r * LD + c] = s < S ? src[s * ss + c] : 0.f;
+    }
+  }
+}
+
+// VW adjacent floats at p (VW = 1, 2 or 4)
+template <int VW>
+__device__ __forceinline__ void load_vw(float (&v)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (VW == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int DQK, int DV, int TM>
 __global__ void __launch_bounds__(FThreads) flash_attn_f32_kernel(Args a) {
-  constexpr int LD = DQK + FPAD, LDV = DV + FPAD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + FQ * LD;
-  float* Vs = Ks + FKV * LD;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  float* Pw = Vs + FKV * LDV + warp * 16 * LDP;
+  using C = F32Cfg<DQK, DV, TM>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, TN = C::TN, LDQ = C::LDQ,
+                LDV = C::LDV, LDP = C::LDP, VW = C::VW, NG = C::NG;
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][LDQ]
+  float* Ks = Qs + BQ * LDQ;                       // [2][BKV][LDQ]
+  float* Vs = Ks + 2 * BKV * LDQ;                  // [2][BKV][LDV]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 4, kg = lane & 15;
+  float* Pw = Vs + 2 * BKV * LDV + warp * BKV * LDP;  // this warp's P
   const int S = a.S;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int kh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * FQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const float* q = (const float*)a.q + b * a.qs[0] + h * a.qs[1];
   const float* k = (const float*)a.k + b * a.ks[0] + kh * a.ks[1];
   const float* v = (const float*)a.v + b * a.vs[0] + kh * a.vs[1];
   float* o = (float*)a.o + b * a.os[0] + h * a.os[1];
 
-  for (int e = tid; e < FQ * DQK; e += FThreads) {
-    const int r = e / DQK, c = e % DQK, s = q0 + r;
-    Qs[r * LD + c] = s < S ? q[s * a.qs[2] + c] : 0.f;
-  }
-
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-
-  const int kv_end = a.causal ? min(S, q0 + FQ) : S;
+  const int kv_end = a.causal ? min(S, q0 + BQ) : S;
   const int kv_begin = a.window ? max(0, q0 - a.window + 1) : 0;
-  const int row0 = q0 + 16 * warp;
+  const int t_begin = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
 
-  for (int kt = kv_begin / FKV; kt * FKV < kv_end; ++kt) {
-    const int k0 = kt * FKV;
-    __syncthreads();  // every warp is done with the previous K, V tile
-    for (int e = tid; e < FKV * DQK; e += FThreads) {
-      const int r = e / DQK, c = e % DQK, s = k0 + r;
-      Ks[r * LD + c] = s < S ? k[s * a.ks[2] + c] : 0.f;
+  load_rows_f32<DQK, LDQ, BQ>(Qs, q, a.qs[2], q0, S, a.vec);
+  load_rows_f32<DQK, LDQ, BKV>(Ks, k, a.ks[2], t_begin * BKV, S, a.vec);
+  load_rows_f32<DV, LDV, BKV>(Vs, v, a.vs[2], t_begin * BKV, S, a.vec);
+  cp_async_commit();
+
+  // this warp's rows: row0 .. row0 + 2 TM - 1; this lane's: row0 + rg + 2 i
+  const int row0 = q0 + 2 * TM * warp;
+  const float* Qw = Qs + (2 * TM * warp + rg) * LDQ;  // row i: + 2 i LDQ
+  // the live keys of the warp's first and last row bound every row's
+  const int hi_min = a.causal ? min(S - 1, row0) : S - 1;
+  const int lo_max = a.window ? row0 + 2 * TM - a.window : 0;
+
+  float acc[TM][NG * VW];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < NG * VW; ++c) acc[i][c] = 0.f;
+  float m_run[TM], l_run[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) m_run[i] = -kInf, l_run[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_rows_f32<DQK, LDQ, BKV>(Ks + (st ^ 1) * BKV * LDQ, k, a.ks[2],
+                                   (t + 1) * BKV, S, a.vec);
+      load_rows_f32<DV, LDV, BKV>(Vs + (st ^ 1) * BKV * LDV, v, a.vs[2],
+                                  (t + 1) * BKV, S, a.vec);
     }
-    for (int e = tid; e < FKV * DV; e += FThreads) {
-      const int r = e / DV, c = e % DV, s = k0 + r;
-      Vs[r * LDV + c] = s < S ? v[s * a.vs[2] + c] : 0.f;
-    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q) have landed
     __syncthreads();
-
-    float sc[FKV / 8][4];
+    const int k0 = t * BKV;
+    const bool dead = row0 >= S || (a.causal && k0 > row0 + 2 * TM - 1) ||
+                      (a.window && k0 + BKV - 1 <= row0 - a.window);
+    if (!dead) {
+      const float* Kt = Ks + st * BKV * LDQ + kg * LDQ;  // key kg + 16 j
+      const float* Vt = Vs + st * BKV * LDV + kg * VW;
+      float sc[TM][TN];
 #pragma unroll
-    for (int j = 0; j < FKV / 8; ++j)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < DQK; kk += 16)
+        for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < DQK; d += 4) {
+        float4 kv[TN];
 #pragma unroll
-      for (int j = 0; j < FKV / 8; ++j)
-        mma_tile_f32(sc[j], Qs + 16 * warp * LD + kk, LD, Ks + 8 * j * LD + kk,
-                     1, LD);
-
-    float mx[2] = {kNegInf, kNegInf};
+        for (int j = 0; j < TN; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(Kt + 16 * j * LDQ + d);
 #pragma unroll
-    for (int j = 0; j < FKV / 8; ++j)
+        for (int i = 0; i < TM; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(Qw + 2 * i * LDQ + d);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kv = k0 + 8 * j + frag_col(c);
-        const float s = live(row0 + frag_row(c), kv, S, a.causal, a.window)
-                            ? sc[j][c] * a.scale
-                            : kNegInf;
-        sc[j][c] = s;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s);
+          for (int j = 0; j < TN; ++j) {
+            sc[i][j] = fmaf(qv.x, kv[j].x, sc[i][j]);
+            sc[i][j] = fmaf(qv.y, kv[j].y, sc[i][j]);
+            sc[i][j] = fmaf(qv.z, kv[j].z, sc[i][j]);
+            sc[i][j] = fmaf(qv.w, kv[j].w, sc[i][j]);
+          }
+        }
       }
-    float alpha[2], m_new[2];
+      // keys outside a row's live range, only where the tile crosses some
+      // row's bounds
+      if (k0 < lo_max || k0 + BKV - 1 > hi_min) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      m_new[hh] = fmaxf(m_run[hh], mx[hh]);
-      alpha[hh] = expf(m_run[hh] - m_new[hh]);
-      m_run[hh] = m_new[hh];
-      l_run[hh] *= alpha[hh];
+        for (int i = 0; i < TM; ++i) {
+          const int r = row0 + rg + 2 * i;
+          const int hi = a.causal ? min(S - 1, r) : S - 1;
+          const int lo = a.window ? r - a.window + 1 : 0;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int key = k0 + kg + 16 * j;
+            if (key < lo || key > hi) sc[i][j] = -kInf;
+          }
+        }
+      }
+      float alpha[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        float mx = sc[i][0];
+#pragma unroll
+        for (int j = 1; j < TN; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+        for (int x = 1; x < 16; x <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+        const float m_new = fmaxf(m_run[i], mx);
+        // a row with no live key yet keeps max -inf: use 0 there, so that
+        // its terms are 2^-inf = 0 and never inf - inf
+        const float msl = (m_new == -kInf ? 0.f : m_new) * sl2;
+        alpha[i] = fast_exp2(m_run[i] * sl2 - msl);
+        m_run[i] = m_new;
+        l_run[i] *= alpha[i];  // this lane's share of the row sum
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          sc[i][j] = fast_exp2(fmaf(sc[i][j], sl2, -msl));
+          l_run[i] += sc[i][j];
+        }
+      }
+      // P[row rg + 2 i][key kg + 16 j] at Pw[(kg + 16 j) LDP + TM rg + i]
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int i = 0; i < TM; i += 4)
+          *reinterpret_cast<float4*>(Pw + (kg + 16 * j) * LDP + TM * rg +
+                                     i) = make_float4(sc[i][j], sc[i + 1][j],
+                                                      sc[i + 2][j],
+                                                      sc[i + 3][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < NG * VW; ++c) acc[i][c] *= alpha[i];
+      __syncwarp();
+#pragma unroll 4
+      for (int key = 0; key < BKV; ++key) {
+        float p[TM];
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(Pw + key * LDP + TM * rg + i);
+          p[i] = x.x, p[i + 1] = x.y, p[i + 2] = x.z, p[i + 3] = x.w;
+        }
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float vv[VW];
+          load_vw<VW>(vv, Vt + key * LDV + 16 * VW * g);
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int c = 0; c < VW; ++c)
+              acc[i][g * VW + c] = fmaf(p[i], vv[c], acc[i][g * VW + c]);
+        }
+      }
+      __syncwarp();  // P is read before the next tile overwrites it
     }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+  cp_async_wait<0>();
+
 #pragma unroll
-    for (int j = 0; j < FKV / 8; ++j)
+  for (int i = 0; i < TM; ++i) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kv = k0 + 8 * j + frag_col(c);
-        const float p =
-            live(row0 + frag_row(c), kv, S, a.causal, a.window)
-                ? expf(sc[j][c] - m_new[c >> 1])
-                : 0.f;
-        l_run[c >> 1] += p;
-        Pw[frag_row(c) * LDP + 8 * j + frag_col(c)] = p;
+    for (int x = 1; x < 16; x <<= 1)
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], x);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float l = fmaxf(l_run[i], 1e-30f);
+    const int r = row0 + rg + 2 * i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      float* dst = o + r * a.os[2] + 16 * VW * g + kg * VW;
+      float y[VW];
+#pragma unroll
+      for (int c = 0; c < VW; ++c) y[c] = acc[i][g * VW + c] / l;
+      if constexpr (VW == 4) {
+        if (a.vec) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(y[0], y[1], y[2], y[3]);
+          continue;
+        }
       }
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
-    __syncwarp();
-#pragma unroll 1
-    for (int kk = 0; kk < FKV; kk += 16)
-#pragma unroll
-      for (int n = 0; n < DV / 8; ++n)
-        mma_tile_f32(acc[n], Pw + kk, LDP, Vs + kk * LDV + 8 * n, LDV, 1);
-    __syncwarp();
-  }
-
-  float l[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] = l_run[hh] + __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-    l[hh] = fmaxf(l[hh], 1e-30f);
-  }
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = row0 + frag_row(c);
-      if (r < S) o[r * a.os[2] + 8 * n + frag_col(c)] = acc[n][c] / l[c >> 1];
+      for (int c = 0; c < VW; ++c) dst[c] = y[c];
     }
+  }
 }
 
 template <int DQK, int DV>
@@ -766,25 +913,48 @@ int launch_tma(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int DQK, int DV, int TM>
+int launch_f32(const Args& a, int B, cudaStream_t stream) {
+  constexpr int BQ = F32Cfg<DQK, DV, TM>::BQ;
+  constexpr size_t bytes = smem_bytes_f32<DQK, DV, TM>();
+  auto kernel = flash_attn_f32_kernel<DQK, DV, TM>;
+  if ((a.S + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
+  KernelFacts facts;
+  const int err = kernel_facts((const void*)kernel, FThreads, bytes, &facts);
+  if (err != 0) return err;
+  dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + BQ - 1) / BQ));
+  kernel<<<grid, FThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int DQK, int DV>
 int launch(const Args& a, int B, int dtype, cudaStream_t stream) {
-  if constexpr ((DQK == 64 || DQK == 128) && DV == DQK ||
+  if constexpr ((DQK == 64 || DQK == 128 || DQK == 256) && DV == DQK ||
                 (DQK == 192 && DV == 128)) {
     if (dtype == DT_BF16 && a.vec) return launch_tma<DQK, DV>(a, B, stream);
   }
-  const bool bf = dtype == DT_BF16;
-  void (*kernel)(Args) = bf ? flash_attn_bf16_kernel<DQK, DV>
-                            : flash_attn_f32_kernel<DQK, DV>;
-  const size_t bytes =
-      bf ? smem_bytes_mma<DQK, DV>() : smem_bytes_f32<DQK, DV>();
-  const int bq = bf ? MQ : FQ;
-  if ((a.S + bq - 1) / bq > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype == DT_F32) {
+    // 64 query rows a block, or 32 where the 64-row blocks would leave
+    // block slots of the card empty: twice the blocks, each warp's key
+    // loop over half the rows
+    KernelFacts facts;
+    const int err =
+        kernel_facts((const void*)flash_attn_f32_kernel<DQK, DV, 8>,
+                     FThreads, smem_bytes_f32<DQK, DV, 8>(), &facts);
+    if (err != 0) return err;
+    const long long blocks = (long long)B * a.H * ((a.S + 63) / 64);
+    return blocks < (long long)facts.sms * facts.per_sm
+               ? launch_f32<DQK, DV, 4>(a, B, stream)
+               : launch_f32<DQK, DV, 8>(a, B, stream);
+  }
+  auto kernel = flash_attn_bf16_kernel<DQK, DV>;
+  constexpr size_t bytes = smem_bytes_mma<DQK, DV>();
+  if ((a.S + MQ - 1) / MQ > 65535) return (int)cudaErrorInvalidValue;
   KernelFacts facts;
-  const int err = kernel_facts((const void*)kernel, bf ? MTHREADS : FThreads,
-                               bytes, &facts);
+  const int err = kernel_facts((const void*)kernel, MTHREADS, bytes, &facts);
   if (err != 0) return err;
-  dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + bq - 1) / bq));
-  kernel<<<grid, bf ? MTHREADS : FThreads, bytes, stream>>>(a);
+  dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + MQ - 1) / MQ));
+  kernel<<<grid, MTHREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -819,8 +989,10 @@ extern "C" int flash_attention_launch(
     return (int)cudaErrorInvalidValue;
   const long long strides[12] = {qsb, qsh, qss, ksb, ksh, kss,
                                  vsb, vsh, vss, osb, osh, oss};
+  // rows 16-byte aligned: every stride a whole number of 16-byte units
+  const int unit = dtype == DT_BF16 ? 8 : 4;
   int vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % unit == 0;
   Args a{q, k, v, o, H, Hkv, S, causal, window, scale,
          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
          vec};

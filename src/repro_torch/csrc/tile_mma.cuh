@@ -7,10 +7,6 @@
 // and mma.sync with fp32 accumulation.  Fragment layout of the m16n8
 // accumulator: with lane = 4 * g + t, c[0], c[1] hold C[g][2t], C[g][2t+1]
 // and c[2], c[3] hold C[g + 8][2t], C[g + 8][2t + 1].
-//
-// fp32 route: mma_tile_f32 adds A[16 x 16] * B[16 x 8] with scalar FMAs in
-// full fp32, in the same accumulator layout; it exists for checking against
-// fp32 references, not for speed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,24 +123,4 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---- fp32: scalar tile ------------------------------------------------------
-
-// acc += A[16 x 16] * B[16 x 8]: A row-major (a[r * lda + k]), element
-// (k, n) of B at b[k * bk + n * bn]
-__device__ __forceinline__ void mma_tile_f32(float acc[4], const float* a,
-                                             int lda, const float* b, int bk,
-                                             int bn) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float x0 = a[g * lda + k], x1 = a[(g + 8) * lda + k];
-    const float y0 = b[k * bk + (2 * t) * bn];
-    const float y1 = b[k * bk + (2 * t + 1) * bn];
-    acc[0] = fmaf(x0, y0, acc[0]);
-    acc[1] = fmaf(x0, y1, acc[1]);
-    acc[2] = fmaf(x1, y0, acc[2]);
-    acc[3] = fmaf(x1, y1, acc[3]);
-  }
 }

@@ -22,6 +22,11 @@ machine without them:
 * B3's fp32 route across its switch from the streaming kernels to the
   tiled ones, the tiles' edges and its splits of K, within 2e-5 of the
   plain version and repeating bit for bit;
+* B2 at gemma3-4b's head width 256 on the TMA + wgmma route (its prefill,
+  windowed and not, ragged lengths, every GQA group size), on the
+  mma.sync route where TMA cannot read the rows, and B2's fp32 route at
+  the serving and training shapes, every width, windowed, non-causal and
+  ragged, within 2e-5 and repeating bit for bit;
 * B4 over qk-norm's to d_ff's widths in every x/scale dtype pair, and on a
   view off a 16-byte boundary (its scalar route);
 * B1's planner batches (zero copy), bitwise, and owning their results;
@@ -308,6 +313,131 @@ def test_flash_attention_at_mla_widths_unpadded(b, h, s, dtype):
     assert got.shape == (b, h, s, 128) and got.transpose(1, 2).is_contiguous()
     assert bool(torch.isfinite(got).all())
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _attn_kernel_names(fn):
+    """The names of the device kernels ``fn()`` launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "flash_attn" in e.name}
+
+
+def _gemma_qkv(b, h, hkv, s, dtype, seed, width=256):
+    """q, k, v at gemma3-4b's head width 256 as the model holds them,
+    ``[B, S, H, 256]`` handed over as ``[B, H, S, 256]`` views; with
+    ``width > 256``, sliced out of rows ``width`` elements apart."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((b, s, n, width), generator=g, device="cuda")
+                 .to(dtype)[..., :256].transpose(1, 2)
+                 for n in (h, hkv, hkv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 1024])
+def test_flash_attention_d256_at_gemma_prefill_on_the_tma_route(window):
+    """B2 at gemma3-4b's prefill (B 4, H 8, Hkv 4, S 2,048, d 256, causal;
+    its local layers' 1,024-key window and its global layers'): the TMA +
+    wgmma kernel, within the bf16 tolerance of the plain version."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _gemma_qkv(4, 8, 4, 2048, torch.bfloat16, window)
+    got = fa.flash_attention(q, k, v, window=window)
+    assert _close(got, fa.attention_plain(q, k, v, window=window))
+    names = _attn_kernel_names(
+        lambda: fa.flash_attention(q, k, v, window=window))
+    assert names and all("flash_attn_wgmma_kernel" in n for n in names)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40, 1024])
+@pytest.mark.parametrize("hkv", [1, 4, 8])
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 1100])
+def test_flash_attention_d256_ragged(s, hkv, window):
+    """B2 at d 256 on the TMA + wgmma route at ragged lengths, every GQA
+    group size of gemma's 8 heads, with and without a window (40 keys:
+    its edge inside tiles; 1,024: gemma's, cutting keys at S 1,100)."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _gemma_qkv(2, 8, hkv, s, torch.bfloat16, s + hkv + window)
+    assert _close(fa.flash_attention(q, k, v, window=window),
+                  fa.attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.gpu
+def test_flash_attention_d256_without_tma_takes_the_mma_route():
+    """Rows 260 elements apart (not whole 16-byte units): TMA cannot read
+    them, so d 256 takes the mma.sync route with element loads, still
+    within the bf16 tolerance."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _gemma_qkv(2, 8, 4, 300, torch.bfloat16, 7, width=260)
+    assert q.stride(1) % 8 != 0
+    for window in (0, 40):
+        assert _close(fa.flash_attention(q, k, v, window=window),
+                      fa.attention_plain(q, k, v, window=window))
+    names = _attn_kernel_names(lambda: fa.flash_attention(q, k, v))
+    assert names and all("flash_attn_bf16_kernel" in n for n in names)
+
+
+F32_ATTN_CASES = [
+    # (B, H, Hkv, S, dqk, dv, causal, window)
+    (8, 32, 4, 512, 64, 64, True, 0),  # tinyllama's 8 x 512, fp32 cache
+    (4, 32, 4, 200, 64, 64, True, 0),
+    (2, 12, 4, 256, 64, 64, True, 0),  # the ~100M trainer's microbatch
+    (2, 4, 2, 300, 64, 64, True, 40), (1, 8, 4, 1100, 256, 256, True, 1024),
+    (2, 8, 8, 150, 64, 64, False, 0),  # whisper's encoder, non-causal
+    (1, 4, 1, 65, 16, 16, True, 0), (1, 4, 2, 129, 32, 32, True, 0),
+    (2, 4, 4, 63, 128, 128, True, 0), (2, 8, 4, 130, 256, 256, True, 0),
+    (1, 8, 8, 200, 192, 128, True, 0), (1, 3, 1, 1, 64, 64, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", F32_ATTN_CASES, ids=str)
+def test_flash_attention_fp32_route(case):
+    """B2's fp32 route (full fp32 FMAs, TF32 off) within 2e-5 of the plain
+    version: the 8 x 512 serving shape under the fp32 cache, the ~100M
+    trainer's microbatch (32-row query tiles), windowed, non-causal and
+    ragged cases, every head width and MLA's (192, 128); two calls equal
+    bit for bit."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, hkv, s, dqk, dv, causal, window = case
+    g = torch.Generator(device="cuda").manual_seed(s + dqk)
+    q, k, v = (torch.randn((b, s, n, w), generator=g, device="cuda")
+               .transpose(1, 2) for n, w in ((h, dqk), (hkv, dqk), (hkv, dv)))
+    scale = dqk ** -0.5
+    got = fa.flash_attention(q, k, v, causal, window, scale)
+    want = fa.attention_plain(q, k, v, causal, window, scale)
+    assert got.shape == (b, h, s, dv) and bool(torch.isfinite(got).all())
+    assert torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal, window,
+                                               scale))
+
+
+@pytest.mark.gpu
+def test_flash_attention_fp32_without_16_byte_rows():
+    """fp32 rows 66 elements apart: no 16-byte copies, element loads into
+    the fp32 route's tiles, within 2e-5."""
+    needs_gpu()
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(66)
+    q, k, v = (torch.randn((1, 4, 150, 66), generator=g, device="cuda")
+               [..., :64] for _ in range(3))
+    assert torch.allclose(fa.flash_attention(q, k, v),
+                          fa.attention_plain(q, k, v), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
