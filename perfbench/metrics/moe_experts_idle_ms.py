@@ -1,0 +1,14 @@
+"""The card waiting on the MoE's per-expert loop: the time inside the
+``moe.experts`` spans in which no device event ran, in the traced batches,
+over their forwards (``serve.prefill`` and ``serve.decode_step`` spans), in
+ms.
+
+Idle time follows the host's speed as much as the layer's: read it only
+in interleaved pairs (parent, change, change, parent) within one call on
+the card, never across calls."""
+
+from perfbench import spans
+
+
+def read(run):
+    return spans.per(run, lambda t: spans.idle_s(t, "moe.experts"))

@@ -77,13 +77,15 @@ def make_frames(cfg, requests: int, seed: int,
 
 def group_stats(eng) -> List[dict]:
     """The engine's per-group stats with the prefill tokens and the decode
-    rate, as the ``group:`` lines print them."""
+    rate, as the ``group:`` lines print them (each decode step's
+    ``step_s`` left out: ``decode_s`` is their sum)."""
     out = []
     for st in eng.stats:
         steps = st["decode_steps"]
         extra = ({"prefill_tokens": st["batch"] * st["prompt_len"]}
                  if "prompt_len" in st else {})
-        out.append({**st, **extra,
+        kept = {k: v for k, v in st.items() if k != "step_s"}
+        out.append({**kept, **extra,
                     "decode_tokens_per_s": (st["batch"] * steps
                                             / st["decode_s"]
                                             if steps else None)})

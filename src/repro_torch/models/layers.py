@@ -26,6 +26,11 @@ package's do (a bf16 activation against an fp32 cache gives fp32), so the
 port follows the reference under any mix of compute and cache dtypes.
 Caches and recurrent states are updated in place (JAX returns new arrays;
 the port writes the same slots of the same tensors and returns the dict).
+
+The serving path's layer boundaries are :mod:`repro_torch.obs` spans:
+``mla.expand`` and ``mla.attend`` (MLA against a filled cache), ``moe.route``,
+``moe.experts`` and ``moe.combine``, and ``mamba.scan``; none sits inside a
+per-expert or per-step loop.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS, WIDTH_PAIRS
 from repro_torch.parallel.sharding import is_dtensor, shard
@@ -545,18 +551,20 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         if cache is not None:
             ckv, k_rope = cache["ckv"], cache["k_rope"]
         T = ckv.shape[1]
-        kv = _mm_rows(ckv, wukv).view(B, T, h, dh + dv)
-        k_nope, v = kv[..., :dh], kv[..., dh:]
-        dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
-        kf = torch.cat([k_nope.to(dt), k_rope.to(dt).expand(B, T, h, r)],
-                       dim=-1)
+        with obs.span("mla.expand"):
+            kv = _mm_rows(ckv, wukv).view(B, T, h, dh + dv)
+            k_nope, v = kv[..., :dh], kv[..., dh:]
+            dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
+            kf = torch.cat([k_nope.to(dt),
+                            k_rope.to(dt).expand(B, T, h, r)], dim=-1)
         # the heads whole, as the keys expanded from the latent cache hold
         # them (on a mesh the cache's sequence takes the model axis)
         q = shard(q, "batch", "seq", None, None)
-        out = _dispatch_attend(q[:, :, :, None, :], kf, v, positions,
-                               torch.arange(T, device=x.device),
-                               causal=True, window=0, softcap=0.0,
-                               chunk=cfg.attn_chunk, scale=scale)
+        with obs.span("mla.attend"):
+            out = _dispatch_attend(q[:, :, :, None, :], kf, v, positions,
+                                   torch.arange(T, device=x.device),
+                                   causal=True, window=0, softcap=0.0,
+                                   chunk=cfg.attn_chunk, scale=scale)
         out = out[:, :, :, 0, :]
     out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
     return shard(out, "batch", "seq", None), cache
@@ -741,28 +749,29 @@ def moe_apply(params, cfg: ModelConfig, x, act: str = "silu"):
     sequence), and the experts take the buffer as ``shard`` places it."""
     B, S, d = x.shape
     E = cfg.n_experts
-    if is_dtensor(x):
-        buf, dest, w, ranks, me, ce = _moe_route_dt(x, params["router"], cfg)
-    else:
-        buf, dest, w, ranks, me, ce = _moe_route(x, params["router"], cfg)
+    with obs.span("moe.route"):
+        route = _moe_route_dt if is_dtensor(x) else _moe_route
+        buf, dest, w, ranks, me, ce = route(x, params["router"], cfg)
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
 
     xe = shard(buf, "expert", "batch", None)
-    if act == "silu":
-        dt = torch.promote_types(x.dtype, params["wg"].dtype)
-        wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
-        ye = ops.swiglu_experts(xe.to(dt), wg, wi, wo)
-    else:
-        h = F.gelu(_mm(xe, params["wg"]), approximate="tanh") * _mm(
-            xe, params["wi"])
-        h = shard(h, "expert", "batch", "ff")
-        ye = _mm(h, params["wo"])
+    with obs.span("moe.experts"):
+        if act == "silu":
+            dt = torch.promote_types(x.dtype, params["wg"].dtype)
+            wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
+            ye = ops.swiglu_experts(xe.to(dt), wg, wi, wo)
+        else:
+            h = F.gelu(_mm(xe, params["wg"]), approximate="tanh") * _mm(
+                xe, params["wi"])
+            h = shard(h, "expert", "batch", "ff")
+            ye = _mm(h, params["wo"])
     ye = shard(ye, "expert", "batch", None)
 
-    if is_dtensor(x):
-        out = _moe_combine_dt(x, ye, dest, w, ranks)
-    else:
-        out = _moe_combine(ye, dest, w, ranks, x.dtype)
+    with obs.span("moe.combine"):
+        if is_dtensor(x):
+            out = _moe_combine_dt(x, ye, dest, w, ranks)
+        else:
+            out = _moe_combine(ye, dest, w, ranks, x.dtype)
     if cfg.n_shared_experts:
         out = out + ffn_apply(params["shared"], x, act)
     return shard(out, "batch", "seq", None), aux
@@ -922,8 +931,9 @@ def mamba_apply(params, cfg: ModelConfig, x, state: Optional[Dict] = None):
     da = (dt[..., None] * A).exp_()                          # [B,S,di,n]
     hs = (dt * uf)[..., None] * Bc[:, :, None, :]            # db, then h
     prev = None if state is None else state["ssm"].float()
-    hs, prev = (_mamba_scan_dt if is_dtensor(hs) else _mamba_scan)(
-        hs, da, prev)
+    with obs.span("mamba.scan"):
+        hs, prev = (_mamba_scan_dt if is_dtensor(hs) else _mamba_scan)(
+            hs, da, prev)
     del da
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc)
     y = y + uf * params["D"].float()

@@ -4,7 +4,11 @@
 One substrate for every layer's runtime visibility:
 
 * :mod:`repro_torch.obs.recorder` — the ambient :class:`Recorder` (nested
-  spans, counters, timed samples) with a near-zero disabled path.
+  spans, counters, timed samples) with a near-zero disabled path; while
+  ``torch.profiler`` records, every span is also a profiler range of its
+  name, so the serving path's spans (``serve.prefill``,
+  ``serve.decode_step``, ``mla.*``, ``moe.*``, ``mamba.scan``) land in the
+  profiler's trace (docs/serving_spans_torch.md).
 * :mod:`repro_torch.obs.perfetto` — Chrome/Perfetto trace-event JSON export of
   a recorder or a sim ``TrafficTrace``.
 * :mod:`repro_torch.obs.metrics` — Prometheus-style histograms and the text

@@ -4,17 +4,26 @@ The recorder is the single substrate every layer emits into: the search
 front door (``resolve-workload`` / ``strategy:<name>`` spans), the GA loop
 (per-generation spans plus best/mean/diversity samples), the batched
 engine (``evaluate_batch`` / executor submit+join spans, scalar-fallback
-counters), the partition repair loop, and the structure-memo tiers.
+counters), the partition repair loop, the structure-memo tiers, and the
+LM serving path (``serve.*``, ``mla.*``, ``moe.*`` and ``mamba.scan``
+spans, docs/serving_spans_torch.md).
+
+A span has two sinks.  An installed :class:`Recorder` keeps it in its tree;
+while ``torch.profiler`` records on the calling thread, the span is also a
+profiler range of the same name (kineto exports it as a ``cpu_op`` event),
+so it lands in the profiler's trace on the device events' clock.  torch is
+looked at only where it is already imported: the planner's imports stay
+torch-free.
 
 Design constraints (the hard invariant carried from PRs 7-9):
 
 * **Side-channel only.**  Nothing here ever touches an ``ExploreResult``
   or a stored artifact; exporters write to a *separate* file.
 * **Near-zero when disabled.**  The ambient recorder defaults to a
-  shared :class:`NullRecorder` whose ``span()`` hands back one reusable
-  no-op context manager and whose ``add``/``sample`` are empty method
-  calls — no clock reads, no allocation, no branches beyond a
-  ``ContextVar`` lookup.
+  shared :class:`NullRecorder` whose ``add``/``sample`` are empty method
+  calls and whose ``span()``, with the profiler off too, hands back one
+  reusable no-op context manager — no clock reads, no allocation: a
+  ``ContextVar`` lookup and one check of the profiler's state.
 * **Ambient, not threaded through signatures.**  A ``ContextVar`` holds
   the active recorder (the same pattern ``strategies._ACTIVE_STORE``
   uses), so deep call sites (``CachedEvaluator``, ``split_to_fit_batch``)
@@ -23,6 +32,7 @@ Design constraints (the hard invariant carried from PRs 7-9):
 
 from __future__ import annotations
 
+import sys
 import time
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -71,15 +81,27 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _profiler_range(name: str) -> Any:
+    """A ``torch.profiler`` range named ``name``, not yet entered, while
+    the profiler records on this thread; else None.  torch is not imported
+    here: where nothing has imported it, nothing can be profiling."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 class NullRecorder:
-    """Disabled recorder: every operation is a constant-time no-op."""
+    """Disabled recorder: every operation is a constant-time no-op, but for
+    ``span()`` while torch's profiler records, which is a profiler range."""
 
     enabled = False
 
     __slots__ = ()
 
-    def span(self, name: str, **attrs: Any) -> _NullSpan:
-        return _NULL_SPAN
+    def span(self, name: str, **attrs: Any) -> Any:
+        rng = _profiler_range(name)
+        return _NULL_SPAN if rng is None else rng
 
     def add(self, name: str, value: float = 1) -> None:
         pass
@@ -93,9 +115,10 @@ class NullRecorder:
 
 
 class _SpanCtx:
-    """Context manager for one live span on a real :class:`Recorder`."""
+    """Context manager for one live span on a real :class:`Recorder` (and a
+    profiler range around it while the profiler records)."""
 
-    __slots__ = ("_rec", "_name", "_attrs", "_span")
+    __slots__ = ("_rec", "_name", "_attrs", "_span", "_range")
 
     def __init__(self, rec: "Recorder", name: str,
                  attrs: Dict[str, Any]) -> None:
@@ -103,14 +126,20 @@ class _SpanCtx:
         self._name = name
         self._attrs = attrs
         self._span: Optional[Span] = None
+        self._range: Any = None
 
     def __enter__(self) -> Span:
+        self._range = _profiler_range(self._name)
+        if self._range is not None:
+            self._range.__enter__()
         self._span = self._rec._open(self._name, self._attrs)
         return self._span
 
     def __exit__(self, *exc: Any) -> bool:
         assert self._span is not None
         self._rec._close(self._span)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -220,8 +249,11 @@ def recording(rec: Recorder) -> Iterator[Recorder]:
 
 
 def span(name: str, **attrs: Any) -> Any:
-    """Open a span on the ambient recorder (no-op when disabled)."""
-    return _ACTIVE.get().span(name, **attrs)
+    """Open a span on the ambient recorder, and a profiler range while
+    torch's profiler records (a shared no-op with neither)."""
+    rec = _ACTIVE.get()
+    # forwarding an empty ``**attrs`` costs as much as the rest of the call
+    return rec.span(name, **attrs) if attrs else rec.span(name)
 
 
 def add(name: str, value: float = 1) -> None:

@@ -27,8 +27,17 @@ keeps the whole forward in bf16.
 
 ``stats`` records, per group, the time to the first tokens on the host
 (``ttft_s``, cache allocation included), the prefill forward's share of it
-(``prefill_s``) and the decode steps' wall time (host clock; each step ends
-with its tokens on the host, so no device work is left outside it).
+(``prefill_s``), the decode steps' wall time (``decode_s``) and each step's
+(``step_s``: from the previous step's tokens on the host to its own), all on
+the host clock; each step ends with its tokens on the host, so no device
+work is left outside it.
+
+The prefill and each decode step run inside a ``serve.prefill`` /
+``serve.decode_step`` span (:mod:`repro_torch.obs`): the forward, its
+``argmax`` and the tokens' copy to the host.  With ``torch.profiler``
+recording they, and the layers' spans inside them (``mla.*``, ``moe.*``,
+``mamba.scan``), are ranges in its trace; with no recorder and no profiler
+each costs a ``ContextVar`` lookup and a check of the profiler's state.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models import encdec_apply, init_caches, lm_apply
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_cast
@@ -72,7 +82,8 @@ def _compute_values(cfg: ModelConfig, values):
 
 class ServeEngine:
     """Length-bucketed batch serving for decoder-only archs, on the device
-    that holds ``values``."""
+    that holds ``values``; ``stats`` and the ``serve.*`` spans as the
+    module's docstring says."""
 
     def __init__(self, cfg: ModelConfig, values, scfg: ServeConfig):
         if cfg.is_encdec:
@@ -94,15 +105,16 @@ class ServeEngine:
             np.stack([r.prompt for r in group]).astype(np.int64)).to(
                 self.device)
         t_prefill = time.perf_counter()
-        logits, caches, _ = lm_apply(self.values, self.cfg, tokens,
-                                     caches=caches, prefill=True,
-                                     last_only=True)
-        cur = torch.argmax(logits[:, -1, :], dim=-1)
-        host = cur.tolist()
+        with obs.span("serve.prefill"):
+            logits, caches, _ = lm_apply(self.values, self.cfg, tokens,
+                                         caches=caches, prefill=True,
+                                         last_only=True)
+            cur = torch.argmax(logits[:, -1, :], dim=-1)
+            host = cur.tolist()
         t_first = time.perf_counter()
         steps = max(r.max_new_tokens for r in group)
-        decoded = 0
-        t1 = time.perf_counter()
+        step_s: List[float] = []
+        t1 = t_step = time.perf_counter()
         for t in range(steps):
             for i, r in enumerate(group):
                 if len(r.generated) < r.max_new_tokens:
@@ -111,16 +123,20 @@ class ServeEngine:
                 break
             pos = torch.full((B, 1), P + t, dtype=torch.int64,
                              device=self.device)
-            logits, caches, _ = lm_apply(self.values, self.cfg, cur[:, None],
-                                         positions=pos, caches=caches)
-            cur = torch.argmax(logits[:, -1, :], dim=-1)
-            host = cur.tolist()
-            decoded += 1
+            with obs.span("serve.decode_step"):
+                logits, caches, _ = lm_apply(self.values, self.cfg,
+                                             cur[:, None], positions=pos,
+                                             caches=caches)
+                cur = torch.argmax(logits[:, -1, :], dim=-1)
+                host = cur.tolist()
+            t_prev, t_step = t_step, time.perf_counter()
+            step_s.append(t_step - t_prev)
         self.stats.append({"batch": B, "prompt_len": P,
                            "ttft_s": t_first - t0,
                            "prefill_s": t_first - t_prefill,
-                           "decode_steps": decoded,
-                           "decode_s": time.perf_counter() - t1})
+                           "decode_steps": len(step_s),
+                           "decode_s": time.perf_counter() - t1,
+                           "step_s": step_s})
 
     def generate(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Length-bucketed batched generation."""
