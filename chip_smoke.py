@@ -6,7 +6,7 @@ and the CUDA toolkit::
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
+It builds the port's five CUDA kernels from ``src/repro_torch/csrc/`` (one
 ``nvcc`` each, all at once) and drives both paths of the port:
 
 * the planner: the streaming-block kernel bit for bit against its plain
@@ -37,8 +37,11 @@ It builds the port's four CUDA kernels from ``src/repro_torch/csrc/`` (one
   tokens), and ``launch.serve`` on jamba's smoke config;
 * MLA and the xLSTM mixers: deepseek-v2-236b at its published widths cut
   to 4 layers (MLA's 128 heads through the flash-attention kernel at their
-  own widths, q/k 192 and v 128 columns, every call recorded; 160 routed
-  experts and 2 shared through the fused SwiGLU kernel) and xlstm-350m at
+  own widths, q/k 192 and v 128 columns, every call recorded; its decode
+  steps in latent space through the MLA decode kernel, held like the
+  others to the structure and against its plain version at the benchmark
+  cells' shapes; 160 routed experts and 2 shared through the fused SwiGLU
+  kernel) and xlstm-350m at
   full width and depth, each served as jamba is; both smoke configs in
   fp32 on the card against the CPU, and ``launch.serve`` on each;
 * whisper-base at its published widths through ``EncDecEngine`` (8 rows of
@@ -154,6 +157,10 @@ LM_KERNELS = {
     "flash_attention": ("flash_attention",
                         "src/repro/kernels/flash_attention.py:38",
                         ("flash_attn_",)),
+    # no TPU kernel: the JAX package decodes MLA in plain jnp, expanding
+    # the cache; the kernel and its combine of the splits' partial sums
+    "mla_decode": ("mla_decode", None,
+                   ("mla_decode_kernel", "mla_combine_kernel")),
 }
 # H100 SXM dense bf16 tensor-core rate, NVIDIA's data sheet
 PEAK_BF16_OPS_PER_S = 989e12
@@ -209,6 +216,19 @@ MLA_ATTN_CASES = ((8, 128, 512, 192, 128, "bfloat16"),
                   (2, 16, 130, 192, 128, "bfloat16"),
                   (1, 8, 200, 192, 128, "float32"),
                   (2, 4, 130, 192, 128, "float32"))
+# MLA's latent decode (mla_decode) at the deepseek cells' decode steps,
+# (B, T): perfbench's decode_long (batch 16 over a 2,184-slot cache) and
+# prefill_short's two prompt lengths (batch 8 over 1,032 and 2,056 slots),
+# 128 heads, each row live to its own position (some past the cache's
+# end: the cache full, its last slot rewritten)
+MLA_DECODE_CASES = ((16, 2184), (8, 1032), (8, 2056))
+# mla_decode against its plain version on those inputs (logits of std ~3.5:
+# a few slots take most of a row's weight, outputs of magnitude ~1): one
+# bf16 unit of the output (up to 2**-7 of it) over the plain version's
+# rounding, and the weights rounded to bf16 before their product with the
+# values (~2e-3 where the values cancel); a mask one slot off or a split's
+# combine weight 1 % off lies above it
+MLA_DECODE_TOL = {"rtol": 1e-2, "atol": 5e-3}
 # B3's fp32 route besides FFN_CASES: both sides of its switch from the
 # streaming kernels to the tiled ones (M 16 | 17), above it at a split K,
 # and d and f that are not multiples of 4 (4-byte copies and element
@@ -1049,9 +1069,11 @@ BACKWARD_CASES = (
 def _lm_counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import rmsnorm as rn
 
-    return {"rmsnorm": rn, "fused_ffn": ff, "flash_attention": fa}
+    return {"rmsnorm": rn, "fused_ffn": ff, "flash_attention": fa,
+            "mla_decode": md}
 
 
 def _check_tokens(what, tokens, n, new_tokens, vocab) -> None:
@@ -1120,7 +1142,8 @@ def _serve_cli(args, n, new_tokens, vocab) -> tuple:
 def _per_layer(cfg, spec) -> dict:
     """Launches of each kernel in one layer of ``spec`` in a forward of
     ``cfg`` (attention and MLA: in a prefill of more than one token;
-    decode attends over the cache in plain torch): one norm before the
+    decode attends over the cache in plain torch, or MLA's through
+    ``mla_decode``, :func:`_latent_decodes`): one norm before the
     mixer, one before the FFN if it has one, 2 more for qk-norm, MLA's
     ``kv_norm`` and ``q_norm`` (with a q LoRA), mLSTM's and sLSTM's
     ``out_norm``; the fused SwiGLU once for a dense FFN, once for each
@@ -1150,7 +1173,8 @@ def _per_forward(cfg, scanned_times: int = 1) -> dict:
     scanned periods' ``scanned_times`` over: 2 in a train step under
     remat, whose backward recomputes them) and the final norm's."""
     pre, p, reps, _ = cfg.layout()
-    out = {"rmsnorm": 1, "fused_ffn": 0, "flash_attention": 0}
+    out = {"rmsnorm": 1, "fused_ffn": 0, "flash_attention": 0,
+           "mla_decode": 0}
     for li, spec in enumerate(cfg.block_specs()):
         times = scanned_times if pre <= li < pre + p * reps else 1
         for lib, n in _per_layer(cfg, spec).items():
@@ -1158,14 +1182,30 @@ def _per_forward(cfg, scanned_times: int = 1) -> dict:
     return out
 
 
-def _structural(cfg, groups) -> dict:
-    """Launches ``cfg``'s structure implies for these serving groups: one
-    prefill and ``decode_steps`` decode forwards a group."""
+def _structural(cfg, groups, cache_dtype: str) -> dict:
+    """Launches ``cfg``'s structure implies for these serving groups over a
+    cache of ``cache_dtype``: one prefill and ``decode_steps`` decode
+    forwards a group."""
     per = _per_forward(cfg)
     forwards = sum(1 + g["decode_steps"] for g in groups)
     return {"rmsnorm": per["rmsnorm"] * forwards,
             "fused_ffn": per["fused_ffn"] * forwards,
-            "flash_attention": per["flash_attention"] * len(groups)}
+            "flash_attention": per["flash_attention"] * len(groups),
+            "mla_decode": _latent_decodes(cfg, groups, cache_dtype)}
+
+
+def _latent_decodes(cfg, groups, cache_dtype: str) -> int:
+    """Launches of ``mla_decode`` these serving groups imply: once an MLA
+    layer in each decode forward where the latent route takes it (a bf16
+    cache at ``LATENT_WIDTHS``)."""
+    from repro_torch.kernels.mla_decode import LATENT_WIDTHS
+    from repro_torch.models.config import ATTN_MLA
+
+    if cache_dtype != "bfloat16" or (
+            cfg.kv_lora_rank, cfg.rope_head_dim) not in LATENT_WIDTHS:
+        return 0
+    return sum(s.mixer == ATTN_MLA for s in cfg.block_specs()) * sum(
+        g["decode_steps"] for g in groups)
 
 
 def _trace_tops(device, host, n: int = 12) -> dict:
@@ -1258,7 +1298,7 @@ def phase_serve() -> dict:
     wall = time.perf_counter() - t0
     launches = {lib: mod.launches for lib, mod in counters.items()}
     groups = [g for _, gs in runs for g in gs]
-    expected = _structural(cfg, groups)
+    expected = _structural(cfg, groups, "bfloat16")
     for g in groups:
         emit({"phase": "serve", "pass": "first", "group": g})
     # the same runs again, warm (kernels loaded, allocator primed)
@@ -1279,7 +1319,7 @@ def phase_serve() -> dict:
     cli_launches = {lib: mod.launches for lib, mod in counters.items()}
     cli = {"args": list(SERVE_CLI_ARGS), "cache_dtype": "float32",
            "groups": cli_groups, "launches": cli_launches,
-           "expected_launches": _structural(cfg, cli_groups)}
+           "expected_launches": _structural(cfg, cli_groups, "float32")}
     out = {
         "phase": "serve", "arch": SERVE_ARCH, "seed": SERVE_SEED,
         "max_batch": SERVE_MAX_BATCH, "new_tokens": SERVE_NEW_TOKENS,
@@ -1462,7 +1502,7 @@ def _serve_slice(phase: str, cfg, device: dict, b2_widths=None,
         calls[_b2_call(dt, shape, hkv, dv)] += n
     launches = {lib: mod.launches for lib, mod in counters.items()}
     groups = [g for _, gs in first for g in gs]
-    expected = _structural(cfg, groups)
+    expected = _structural(cfg, groups, cache_dtype)
     for g in groups:
         emit({"phase": phase, "pass": "first", "group": g})
     warm = [_serve_hybrid(cfg, values, *r, cache_dtype) for r in runs]
@@ -1810,7 +1850,7 @@ def _smoke_cli(phase: str, arch: str) -> dict:
     launches = {lib: mod.launches for lib, mod in counters.items()}
     cli = {"phase": phase, "args": list(args), "groups": groups,
            "launches": launches,
-           "expected_launches": _structural(cfg, groups)}
+           "expected_launches": _structural(cfg, groups, "float32")}
     emit(cli)
     if launches != cli["expected_launches"]:
         raise AssertionError(f"serve {args}: launches {launches} != "
@@ -1842,7 +1882,7 @@ def _whisper_launches(cfg, steps: int) -> dict:
     token a step: its self-attention is plain; the FFN is GeLU: no B3)."""
     enc = _per_layer(cfg, cfg.block_specs()[0])
     return {"flash_attention": cfg.n_enc_layers * enc["flash_attention"],
-            "fused_ffn": 0,
+            "fused_ffn": 0, "mla_decode": 0,
             "rmsnorm": cfg.n_enc_layers * enc["rmsnorm"] + 1
             + steps * (3 * cfg.n_layers + 1)}
 
@@ -1973,7 +2013,7 @@ def phase_whisper_vs_cpu() -> dict:
         for g, w in ((got_enc, want_enc), (got_logits, want_logits)))
     dec = _per_layer(cfg, cfg.block_specs()[0])
     expected = {"flash_attention": (cfg.n_enc_layers + cfg.n_layers)
-                * dec["flash_attention"], "fused_ffn": 0,
+                * dec["flash_attention"], "fused_ffn": 0, "mla_decode": 0,
                 "rmsnorm": cfg.n_enc_layers * dec["rmsnorm"] + 1
                 + 3 * cfg.n_layers + 1}
 
@@ -2590,9 +2630,15 @@ def phase_examples(device: dict) -> dict:
     emit(out)
     if failed:
         raise AssertionError(f"examples: {failed} disagree with the CPU")
-    idle = [lib for lib, n in launches.items() if n == 0]
+    # the latent MLA decode has no path here: no example decodes MLA at
+    # its widths (the smoke configs' are narrower)
+    idle = [lib for lib, n in launches.items()
+            if n == 0 and lib != "mla_decode"]
     if idle:
         raise AssertionError(f"examples: {idle} never launched")
+    if launches["mla_decode"]:
+        raise AssertionError("examples: mla_decode launched at the smoke "
+                             "widths")
     if not run_card["last_loss"] < run_card["first_loss"]:
         raise AssertionError("examples: the trainer did not learn")
     trained = {lib: on_card["launches"][lib] for lib in expected}
@@ -2747,7 +2793,8 @@ DRYRUN_TIMEOUT = 300  # seconds, each subprocess
 # the torch ops of each LM kernel library, as a row's kernel_calls names them
 DRYRUN_OPS = {"rmsnorm": ("fused_rmsnorm",),
               "fused_ffn": ("fused_swiglu", "fused_swiglu_with_hidden"),
-              "flash_attention": ("flash_attention",)}
+              "flash_attention": ("flash_attention",),
+              "mla_decode": ("mla_decode",)}
 
 
 def _ops_by_lib(calls: dict) -> dict:
@@ -2898,8 +2945,9 @@ def phase_dryrun(device: dict) -> dict:
         if row.get("counted_at") != "per_device":
             failed.append(f"{name}: counted_at {row.get('counted_at')}")
     tiny = rows.get("tinyllama-1.1b__train_4k__pod16x16", {})
-    if "kernel_calls" in tiny and not all(
-            _ops_by_lib(tiny["kernel_calls"]).values()):
+    if "kernel_calls" in tiny and not all(  # B2-B4: mla_decode is decode's
+            n for lib, n in _ops_by_lib(tiny["kernel_calls"]).items()
+            if lib != "mla_decode"):
         failed.append(f"tinyllama train_4k: kernel calls "
                       f"{tiny['kernel_calls']} miss one of B2-B4")
     rc, stdout, stderr = done["card"]
@@ -2977,6 +3025,41 @@ def _mla_attn_inputs(b, h, s, dqk, dv, dtype, seed):
     return (*padded, *(t.transpose(1, 2) for t in raw)), dqk ** -0.5
 
 
+def _mla_decode_inputs(b, t, seed, h=128):
+    """MLA's latent decode inputs as ``mla_apply`` hands them over: q_lat
+    ``[B, H, 512]`` (a view of the ``[H, B, 512]`` product), q_rope ``[B,
+    H, 64]`` (the rope columns of the ``[B, H, 192]`` query), ckv ``[B, T,
+    512]`` and k_rope ``[B, T, 64]`` (a view of the ``[B, T, 1, 64]``
+    cache), bf16, and each row's position (int64), drawn from
+    ``[T / 2, T + 8)`` with the first row at 0 and the last at ``T - 1``;
+    and the scale ``1/sqrt(192)``.  The queries are drawn at std 2, so
+    that the logits have std ~3.5 and attention is peaked, as a trained
+    model's is: on near-uniform weights the output averages to ~0 and
+    hides a wrong slot or weight."""
+    import torch
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pos = torch.randint(t // 2, t + 8, (b,), generator=g, device="cuda")
+    pos[0], pos[-1] = 0, t - 1
+    return (_randn((h, b, 512), bf16, seed, 2.0).transpose(0, 1),
+            _randn((b, h, 192), bf16, seed + 1, 2.0)[..., 128:],
+            _randn((b, t, 512), bf16, seed + 2),
+            _randn((b, t, 1, 64), bf16, seed + 3)[:, :, 0],
+            pos), 192 ** -0.5
+
+
+def _mla_decode_bytes_ops(args) -> tuple:
+    """The bytes ``mla_decode`` must move (each row's live cache slots, q
+    and the output once) and its operations (the products over the live
+    slots), from its inputs."""
+    q_lat, _, ckv, _, pos = args
+    b, h, kvr = q_lat.shape
+    live = int((pos + 1).clamp(0, ckv.shape[1]).sum())
+    return ((live * (kvr + 64) + b * h * (2 * kvr + 64)) * 2,
+            2 * h * live * (2 * kvr + 64))
+
+
 def _lm_calls():
     """(kernel library, case, kernel call, plain call) for every case of
     the kernel-against-plain phase, in both dtypes; each kernel called as
@@ -2985,7 +3068,18 @@ def _lm_calls():
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import rmsnorm as rn
+
+    for i, (b, t) in enumerate(MLA_DECODE_CASES + ((66, 300), (2, 2184))):
+        # (66, 300): 132 blocks, one split, no combine; (2, 2184): 33
+        # splits, the first row live at slot 0 alone
+        args, scale = _mla_decode_inputs(b, t, 170 + 5 * i)
+        yield ("mla_decode", {"b": b, "h": 128, "t": t, "repeat": True,
+                              **MLA_DECODE_TOL},
+               torch.bfloat16,
+               lambda a=args, sc=scale: md.mla_decode_op(*a, sc),
+               lambda a=args, sc=scale: md.mla_decode_plain(*a, sc))
 
     for i, (b, h, s_len, dqk, dv, tname) in enumerate(MLA_ATTN_CASES):
         dtype = getattr(torch, tname)
@@ -3121,9 +3215,11 @@ def phase_lm_kernels_vs_plain() -> dict:
     widths in fp32 and to 256 columns once in bf16; B2 at gemma3-4b's d-256
     prefill, windowed and not; B3's fp32 route across its switch and at
     ragged widths, :data:`FFN_F32_CASES`; each fp32 call of B2 and B3
-    repeated and held to repeat bit for bit) and at ragged ones, in bf16
-    (tolerance 2e-2) and fp32 (2e-5, TF32 off), the tolerances of
-    ``tests/test_kernels.py``.  Returns the largest absolute error of each
+    repeated and held to repeat bit for bit; MLA's latent decode at the
+    deepseek cells' decode steps, :data:`MLA_DECODE_CASES`, one split and
+    33, each repeated bit for bit) and at ragged ones, in bf16
+    (tolerance 2e-2; the latent decode :data:`MLA_DECODE_TOL`) and fp32
+    (2e-5, TF32 off), the tolerances of ``tests/test_kernels.py``.  Returns the largest absolute error of each
     kernel, by dtype.  Then each kernel's autograd Function: its backward
     against autograd through the plain version (:func:`_backward_vs_plain`;
     errors under ``(lib, "backward_<dtype>")``)."""
@@ -3148,8 +3244,10 @@ def phase_lm_kernels_vs_plain() -> dict:
         tol = LM_TOL[tname]
         finite = bool(torch.isfinite(got).all())
         err = float((got.float() - want.float()).abs().max())
+        # a case may carry its own (MLA_DECODE_TOL)
         ok = finite and got.shape == want.shape and torch.allclose(
-            got.float(), want.float(), rtol=tol, atol=tol)
+            got.float(), want.float(), rtol=case.get("rtol", tol),
+            atol=case.get("atol", tol))
         if repeat is not None:
             # two calls of B2's and B3's fp32 routes: equal bit for bit,
             # B3's split K or not (the workspace bytes say whether a
@@ -3334,12 +3432,14 @@ def _mla_timing_rows() -> dict:
     v 128 wide; the padded work's bound beside it).  B3 at an expert's and
     the dense layer's widths (:data:`DEEPSEEK_FFN_CASES`), with the
     composite; B4 at the new norm widths over an 8 x 512 prefill, with
-    ``F.rms_norm``."""
+    ``F.rms_norm``; MLA's latent decode at the deepseek cells' decode
+    steps (:data:`MLA_DECODE_CASES`), its bound from the live slots."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import rmsnorm as rn
 
     bf16, rows = torch.bfloat16, {}
@@ -3397,6 +3497,21 @@ def _mla_timing_rows() -> dict:
         lambda x, sc, d=d: F.rms_norm(x, (d,), sc, 1e-5),
         nbytes=(2 * 4096 * d + d) * 2, ops=0, reps=200)
         for d in (5120, 1536, 512, 1024)]
+    # MLA's latent decode at the deepseek cells' decode steps
+    # (MLA_DECODE_CASES); no one library call takes the split key in place
+    rows["mla_decode"] = []
+    for b, t in MLA_DECODE_CASES:
+        first, scale = _mla_decode_inputs(b, t, 181)
+        nbytes, ops = _mla_decode_bytes_ops(first)
+        rows["mla_decode"].append(_timing_row(
+            "mla_decode", {"b": b, "h": 128, "t": t},
+            lambda i, b=b, t=t: _mla_decode_inputs(b, t, 181 + 5 * i)[0],
+            lambda *a, sc=scale: md.mla_decode(*a, sc),
+            lambda *a, sc=scale: md.mla_decode_plain(*a, sc), None,
+            nbytes=nbytes, ops=ops, reps=100,
+            extra={"splits": md.splits_for(
+                b, 128, t, torch.cuda.get_device_properties(
+                    0).multi_processor_count)}))
     return rows
 
 
@@ -3513,6 +3628,9 @@ def phase_lm_timing() -> dict:
         ops=4 * hd * b * h * s_len * (s_len + 1) // 2, reps=100)]
     for lib, new in _mla_timing_rows().items():
         rows[f"{lib}_mla_xlstm"] = new
+    # MLA's latent decode has no tinyllama shape: its first row, decode_long's
+    # step, heads its kernels-line entry
+    rows["mla_decode"] = rows["mla_decode_mla_xlstm"][0]
 
     # whisper-base's encoder attention (serve_whisper): B 8, H = Hkv 8,
     # S 1,500, d 64, non-causal
@@ -3943,12 +4061,13 @@ def main(argv=None) -> int:
             "launches_by_path": {p: served[p]["launches"][lib]
                                  for p in MAIN_PATHS},
             "max_abs_err": lm_errs[(lib, "bfloat16")],
-            "max_abs_err_fp32": lm_errs[(lib, "float32")],
+            # MLA's latent decode: bf16 only, no backward
+            "max_abs_err_fp32": lm_errs.get((lib, "float32")),
             "backward_max_abs_err": {
-                t: lm_errs[(lib, f"backward_{t}")]
+                t: lm_errs.get((lib, f"backward_{t}"))
                 for t in ("bfloat16", "float32")},
             "shape": {k: v for k, v in row.items()
-                      if k in ("m", "d", "f", "b", "h", "hkv", "s")},
+                      if k in ("m", "d", "f", "b", "h", "hkv", "s", "t")},
             "ms": row["ms"],
             "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"],
@@ -3962,22 +4081,24 @@ def main(argv=None) -> int:
                 "ms", "device_ms", "library_ms", "library_device_ms",
                 "composite_ms")},
         })
-        kernels[-1]["jamba"] = [{k: r[k] for k in (
-            "m", "d", "f", "b", "h", "hkv", "s", "ms", "device_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms", "composite_ms", "l2_cold") if k in r}
-            for r in lm_rows[f"{lib}_jamba"]]
+        if f"{lib}_jamba" in lm_rows:
+            kernels[-1]["jamba"] = [{k: r[k] for k in (
+                "m", "d", "f", "b", "h", "hkv", "s", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "composite_ms", "l2_cold") if k in r}
+                for r in lm_rows[f"{lib}_jamba"]]
         kernels[-1]["mla_xlstm"] = [{k: r[k] for k in (
-            "m", "d", "f", "b", "h", "hkv", "s", "mla", "route", "dtype",
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "padded_bound_ms", "library_ms", "library_device_ms",
+            "m", "d", "f", "b", "h", "hkv", "s", "t", "splits", "mla",
+            "route", "dtype", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "padded_bound_ms", "library_ms", "library_device_ms",
             "sdpa_backends", "sdpa_default_equals", "composite_ms",
             "l2_cold") if k in r}
             for r in lm_rows[f"{lib}_mla_xlstm"]]
-        bwd = lm_rows["backward"][lib]
-        kernels[-1]["backward"] = {k: bwd[k] for k in (
-            "shape", "ms", "device_ms", "plain_ms", "library_ms",
-            "composite_ms", "bound_ms", "bound_by")}
+        if lib in lm_rows["backward"]:
+            bwd = lm_rows["backward"][lib]
+            kernels[-1]["backward"] = {k: bwd[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                "composite_ms", "bound_ms", "bound_by")}
         for extra in ("whisper", "fp32", "gemma"):
             if f"{lib}_{extra}" in lm_rows:
                 kernels[-1][extra] = [{k: r[k] for k in (

@@ -1,10 +1,10 @@
 // Host-side launch facts shared by the port's kernels (fused_ffn.cu,
-// flash_attention.cu), computed once per device and kernel instead of once
-// per launch: the dynamic shared-memory attribute a kernel needs above 48
-// KB (cudaFuncSetAttribute holds in the device's context), the blocks of it
-// an SM holds at once, and the device's SM count.  The table is guarded by
-// a mutex, so threads that launch at once (the plan server's search
-// workers) set each attribute once.
+// flash_attention.cu, mla_decode.cu), computed once per device and kernel
+// instead of once per launch: the dynamic shared-memory attribute a kernel
+// needs above 48 KB (cudaFuncSetAttribute holds in the device's context),
+// the blocks of it an SM holds at once, and the device's SM count.  The
+// table is guarded by a mutex, so threads that launch at once (the plan
+// server's search workers) set each attribute once.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,8 @@
-// Hopper building blocks for the port's large-M GEMM (fused_ffn.cu) and
-// flash attention (flash_attention.cu): tensor maps, mbarriers, TMA tile
-// loads, shared-memory matrix descriptors and the warpgroup-wide wgmma
-// products (bf16 in, fp32 accumulate).  sm_90a only.
+// Hopper building blocks for the port's large-M GEMM (fused_ffn.cu), flash
+// attention (flash_attention.cu) and MLA's latent decode (mla_decode.cu):
+// tensor maps, mbarriers, TMA tile loads, shared-memory matrix descriptors
+// and the warpgroup-wide wgmma products (bf16 in, fp32 accumulate).
+// sm_90a only.
 //
 // Shared-memory layouts are the 128-byte-swizzled ones TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16), swizzled in
@@ -106,14 +107,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// the box at (c0 innermost, c1, ...) of a 2-d or 4-d tensor map into dst;
-// completes its bytes on bar
+// the box at (c0 innermost, c1, ...) of a 2-d, 3-d or 4-d tensor map into
+// dst; completes its bytes on bar
 __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,

@@ -61,6 +61,14 @@ _SIGNATURES = {
         "flash_attention_launch": ([_P] * 4 + [_I] * 6 + [_LL] * 12
                                    + [_I, _I, _F, _I, _P], _I),
     },
+    "mla_decode": {
+        # q_lat, q_rope, ckv, k_rope, positions, o, ws, B, H, T, kvr, rope,
+        # splits, the b/h strides of q_lat and q_rope, the b/t strides of
+        # ckv and k_rope, the b stride of positions, the b/h strides of o,
+        # scale, stream
+        "mla_decode_launch": ([_P] * 7 + [_I] * 6 + [_LL] * 11 + [_F, _P],
+                              _I),
+    },
 }
 
 #: dtype codes of the C entry points (``DT_F32``/``DT_BF16`` in

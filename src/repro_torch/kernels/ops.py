@@ -1,9 +1,9 @@
 """Public wrappers of the LM kernels, dispatching on the tensor's device.
 
 A CUDA tensor goes through the hand-written kernel as a torch op
-(``repro_torch::fused_rmsnorm``, ``fused_swiglu``, ``flash_attention``),
-which launches or raises; a CPU tensor goes through the kernel's plain
-torch version.  Nothing falls back from one to the other.  A fake
+(``repro_torch::fused_rmsnorm``, ``fused_swiglu``, ``flash_attention``,
+``mla_decode``), which launches or raises; a CPU tensor goes through the
+kernel's plain torch version.  Nothing falls back from one to the other.  A fake
 ``cuda`` tensor (``FakeTensorMode``, as the dry run traces a step) takes
 the same op, where the dispatcher sends it to the op's fake
 implementation: no branch here tells real from fake.  While grad is
@@ -48,6 +48,7 @@ from repro_torch.parallel.sharding import is_dtensor
 from . import autograd
 from .flash_attention import attention_plain, flash_attention_op
 from .fused_ffn import fused_swiglu_op, swiglu_plain
+from .mla_decode import mla_decode_op, mla_decode_plain
 from .rmsnorm import fused_rmsnorm_op, rmsnorm_plain
 
 
@@ -219,3 +220,16 @@ def swiglu_experts(xe: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                           xe, wg, wi, wo)
     return torch.stack([swiglu(xe[e], wg[e], wi[e], wo[e])
                         for e in range(xe.shape[0])])
+
+
+def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+               ckv: torch.Tensor, k_rope: torch.Tensor,
+               positions: torch.Tensor, scale: float) -> torch.Tensor:
+    """MLA's decode attention in latent space: q_lat ``[B, H, kvr]``,
+    q_rope ``[B, H, r]``, ckv ``[B, T, kvr]``, k_rope ``[B, T, r]``,
+    positions ``[B]`` -> ``[B, H, kvr]`` (``mla_decode.LATENT_WIDTHS`` on
+    the card; the plain version takes any).  Decode only: no ``DTensor``
+    and no autograd (the kernel raises on inputs that require grad)."""
+    if _on_cuda("mla_decode", q_lat):
+        return mla_decode_op(q_lat, q_rope, ckv, k_rope, positions, scale)
+    return mla_decode_plain(q_lat, q_rope, ckv, k_rope, positions, scale)

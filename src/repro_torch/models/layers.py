@@ -11,13 +11,13 @@ Every ``*_init`` returns a tree of nested dicts whose leaves are
 redistributes a ``DTensor`` activation to its logical placement, without
 one it is a no-op.
 
-RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where its
-contract holds, attention go through :mod:`repro_torch.kernels.ops`: the
-hand-written CUDA kernels on a CUDA tensor, their plain torch versions on a
-CPU tensor (MLA's prefill pads its 192-wide q/k and 128-wide v heads to one
-width the attention kernel is built for), each under autograd through its
-``torch.autograd.Function`` when a train step needs its gradient.  Which
-route a call takes depends on shapes and flags only, never on the device.
+RMSNorm, the SwiGLU FFN (the dense one and each MoE expert) and, where
+their contracts hold, attention and MLA's decode in latent space go through
+:mod:`repro_torch.kernels.ops`: the hand-written CUDA kernels on a CUDA
+tensor, their plain torch versions on a CPU tensor, the first three under
+autograd through their ``torch.autograd.Function`` when a train step needs
+the gradient.  Which route a call takes depends on shapes, dtypes and
+flags only, never on the device.
 Under autograd the Mamba scan and the sLSTM time loop write no tensor in
 place (the sLSTM loop runs inside its own Function).
 
@@ -28,9 +28,11 @@ Caches and recurrent states are updated in place (JAX returns new arrays;
 the port writes the same slots of the same tensors and returns the dict).
 
 The serving path's layer boundaries are :mod:`repro_torch.obs` spans:
-``mla.expand`` and ``mla.attend`` (MLA against a filled cache), ``moe.route``,
-``moe.experts`` and ``moe.combine``, and ``mamba.scan``; none sits inside a
-per-expert or per-step loop.
+``mla.expand`` and ``mla.attend`` (MLA against a filled cache: its
+``wukv`` products and its attention), ``moe.route``, ``moe.experts`` and
+``moe.combine``, and ``mamba.scan``; none sits inside a per-expert or
+per-step loop.  The counter ``mla.latent_decode`` counts MLA's decode
+calls in latent space.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS, WIDTH_PAIRS
+from repro_torch.kernels.mla_decode import LATENT_WIDTHS
 from repro_torch.parallel.sharding import is_dtensor, shard
 
 from .config import ModelConfig
@@ -492,9 +495,12 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
     dropped.
     The empty cache slots the reference attends over lie at key positions
     past every query and are masked causally, so attending over the S
-    in-flight keys is the same function.  Decode and a prefill into a
-    non-empty cache expand the whole cache through ``wukv`` and take the
-    reference's dense / chunked path, as the reference does."""
+    in-flight keys is the same function.  Decode against a plain bf16
+    cache at widths the latent kernel is built for (:func:`_latent_decode`)
+    attends in latent space (:func:`_mla_decode_latent`).  Other decodes
+    and a prefill into a non-empty cache expand the whole cache through
+    ``wukv`` and take the reference's dense / chunked path, as the
+    reference does."""
     B, S, D = x.shape
     h, dh, dv, r = cfg.n_heads, cfg.head_dim, cfg.v_dim, cfg.rope_head_dim
     kvr = cfg.kv_lora_rank
@@ -547,6 +553,9 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
                             heads(kv[..., dh:], "seq_kv"), causal=True,
                             scale=scale)
         out = out[..., :dv].transpose(1, 2).to(kv.dtype)
+    elif _latent_decode(cfg, cache, S):
+        out = _mla_decode_latent(q, cache, params["wukv"], positions, dh,
+                                 scale)
     else:
         if cache is not None:
             ckv, k_rope = cache["ckv"], cache["k_rope"]
@@ -568,6 +577,46 @@ def mla_apply(params, cfg: ModelConfig, x, positions,
         out = out[:, :, :, 0, :]
     out = _mm(out.reshape(B, S, h * dv), params["wo"].reshape(h * dv, D))
     return shard(out, "batch", "seq", None), cache
+
+
+def _latent_decode(cfg: ModelConfig, cache: Optional[Dict], S: int) -> bool:
+    """Whether an MLA call attends in latent space: one query a row
+    against a cache that is a plain (not sharded) bf16 tensor, at the
+    (kv_lora_rank, rope_head_dim) widths the latent kernel is built for
+    (``mla_decode.LATENT_WIDTHS``)."""
+    return (S == 1 and cache is not None and not is_dtensor(cache["ckv"])
+            and cache["ckv"].dtype == torch.bfloat16
+            and (cfg.kv_lora_rank, cfg.rope_head_dim) in LATENT_WIDTHS)
+
+
+def _mla_decode_latent(q, cache: Dict, wukv, positions, dh: int,
+                       scale: float):
+    """MLA decode without expanding the cache (the DeepSeek-V2 paper's
+    weight absorption): q ``[B, 1, h, dh + r]`` -> ``[B, 1, h, dv]``, the
+    function of the expansion path with its products reassociated.  Each
+    head's ``W_UK[h]`` (``wukv[:, h, :dh]``) folds into its query, ``q_lat
+    = q_nope W_UK[h]ᵀ``, in the cache's dtype; ``ops.mla_decode`` attends
+    with ``[q_lat, q_rope]`` over ``[ckv, k_rope]`` and with the weights
+    over ``ckv`` (scale ``1 / sqrt(dh + r)`` as before); ``W_UV[h]``
+    (``wukv[:, h, dh:]``) then takes its output back to the head's
+    width.  ``mla.expand`` spans the two products, ``mla.attend`` the
+    attention."""
+    obs.add("mla.latent_decode")
+    dt = cache["ckv"].dtype
+    w = wukv.to(dt)                                     # [kvr, h, dh + dv]
+    B = q.shape[0]
+    q = q[:, 0].to(dt)                                  # [B, h, dh + r]
+    with obs.span("mla.expand"):
+        q_lat = torch.matmul(q[..., :dh].transpose(0, 1),
+                             w[..., :dh].permute(1, 2, 0))  # [h, B, kvr]
+    with obs.span("mla.attend"):
+        o = ops.mla_decode(q_lat.transpose(0, 1), q[..., dh:], cache["ckv"],
+                           cache["k_rope"][:, :, 0],
+                           positions.expand(B, 1)[:, 0].long(), scale)
+    with obs.span("mla.expand"):
+        out = torch.matmul(o.transpose(0, 1),
+                           w[..., dh:].transpose(0, 1))     # [h, B, dv]
+    return out.transpose(0, 1)[:, None]
 
 
 # ---------------------------------------------------------------------------

@@ -315,6 +315,66 @@ def test_flash_attention_at_mla_widths_unpadded(b, h, s, dtype):
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _close_mla(got, want):
+    """Within ``chip_smoke.MLA_DECODE_TOL``: on its peaked inputs, one bf16
+    unit of the output and the weights' bf16 rounding."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), **chip_smoke.MLA_DECODE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["b16-t2184", "b8-t1032",
+                                              "b8-t2056"])
+def test_mla_decode_matches_plain_at_the_cells_shapes(case):
+    """The latent decode kernel and its combine of the splits at the
+    deepseek cells' decode steps (``chip_smoke.MLA_DECODE_CASES``: batch
+    16 over 2,184 slots, batch 8 over 1,032 and 2,056, 128 heads, each row
+    live to its own position, some past the cache's end) against the
+    plain version, and bit for bit the same over two calls, each counted
+    as one launch."""
+    needs_gpu()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    from repro_torch.kernels import mla_decode as md
+
+    b, t = chip_smoke.MLA_DECODE_CASES[case]
+    args, scale = chip_smoke._mla_decode_inputs(b, t, 11 + case)
+    before = md.launches
+    got, again = md.mla_decode(*args, scale), md.mla_decode(*args, scale)
+    assert md.launches == before + 2
+    assert got.shape == (b, 128, 512) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert _close_mla(got, md.mla_decode_plain(*args, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,pos", [(66, 128, 300, 299),
+                                       (2, 3, 100, -1), (1, 64, 1, 0),
+                                       (3, 128, 65, 64), (1, 128, 2184, 900)])
+def test_mla_decode_at_its_edges(b, h, t, pos):
+    """The latent decode kernel against its plain version where one split
+    fills the card (66 rows x 2 head tiles: no combine), on 3 heads (a
+    64-head tile mostly empty), on rows with no live slot (zeros), over a
+    one-slot cache, with a last tile of one key, and at batch 1 (many
+    splits, most of them past the row's live slots)."""
+    needs_gpu()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    from repro_torch.kernels import mla_decode as md
+
+    args, scale = chip_smoke._mla_decode_inputs(b, t, 5, h=h)
+    args = (*args[:4], torch.full((b,), pos, device="cuda"))
+    got = md.mla_decode(*args, scale)
+    assert _close_mla(got, md.mla_decode_plain(*args, scale))
+    if pos < 0:
+        assert not got.any()
+
+
 def _attn_kernel_names(fn):
     """The names of the device kernels ``fn()`` launched."""
     from torch.autograd import DeviceType
@@ -804,7 +864,7 @@ def test_int8_error_feedback_on_the_card_equals_the_cpu():
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_mla",
                                   "fused_swiglu", "fused_swiglu_fp32",
                                   "fused_swiglu_with_hidden",
-                                  "fused_rmsnorm"])
+                                  "fused_rmsnorm", "mla_decode"])
 def test_kernel_ops_pass_opcheck_on_card_tensors(name):
     """Each kernel's torch op on real card tensors: its schema, its fake
     implementation against the kernel's output (shape, dtype, strides),
@@ -812,6 +872,7 @@ def test_kernel_ops_pass_opcheck_on_card_tensors(name):
     needs_gpu()
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import rmsnorm as rn
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -831,6 +892,9 @@ def test_kernel_ops_pass_opcheck_on_card_tensors(name):
         "fused_swiglu_with_hidden": (t(40, 256), t(256, 704), t(256, 704),
                                      t(704, 256)),
         "fused_rmsnorm": (t(40, 256), t(256), 1e-5),
+        "mla_decode": (t(2, 8, 512), t(2, 8, 64), t(2, 40, 512),
+                       t(2, 40, 64), torch.tensor([10, 39], device="cuda"),
+                       192 ** -0.5),
     }[name]
     name = name.removesuffix("_mla").removesuffix("_fp32")
     op = getattr(torch.ops.repro_torch, name).default
@@ -839,8 +903,10 @@ def test_kernel_ops_pass_opcheck_on_card_tensors(name):
     launcher = {"flash_attention": fa.flash_attention,
                 "fused_swiglu": ff.fused_swiglu,
                 "fused_swiglu_with_hidden": ff.fused_swiglu_with_hidden,
-                "fused_rmsnorm": rn.fused_rmsnorm}[name]
-    mod = {"flash_attention": fa, "fused_rmsnorm": rn}.get(name, ff)
+                "fused_rmsnorm": rn.fused_rmsnorm,
+                "mla_decode": md.mla_decode}[name]
+    mod = {"flash_attention": fa, "fused_rmsnorm": rn,
+           "mla_decode": md}.get(name, ff)
     before = mod.launches
     got, want = op(*args), launcher(*args)
     assert mod.launches == before + 2

@@ -169,3 +169,48 @@ def test_b2_and_b3_launch_through_the_launch_helper(monkeypatch):
         argtypes = _build._SIGNATURES[lib_name][entry][0]
         assert len(args) == len(argtypes) - 1  # all but the stream
     assert (ff.launches, fa.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,T,splits", [(16, 300, 4), (66, 300, 1)])
+def test_mla_decode_launches_through_the_launch_helper(monkeypatch, B, T,
+                                                       splits):
+    """The latent decode's wrapper hands ``_build.launch`` its C entry
+    point and every argument of the entry's signature but the stream: the
+    operands in place (the absorbed query a ``[B, H, 512]`` view of an
+    ``[H, B, 512]`` product, the cache's rope keys a view of ``[B, T, 1,
+    64]``), the splits :func:`splits_for` picks for 132 SMs, a workspace
+    of ``B * H * splits * 514`` floats where there is more than one split
+    (none at 66 rows: 132 blocks fill the card), their strides and the
+    scale; one launch counted.  Run on CPU tensors with the checks, the
+    library and the launch stubbed."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import mla_decode as md
+
+    calls = []
+    monkeypatch.setattr(_build, "check_cuda_tensors",
+                        lambda name, *t, contiguous=True: 3)
+    monkeypatch.setattr(_build, "load", lambda name: SimpleNamespace(
+        mla_decode_launch="mla_entry"))
+    monkeypatch.setattr(_build, "launch",
+                        lambda entry, index, *args: calls.append(
+                            (entry, index, args)))
+    monkeypatch.setitem(md._SMS, 3, 132)
+    H, bf16 = 128, torch.bfloat16
+    q_lat = torch.zeros((H, B, 512), dtype=bf16).transpose(0, 1)
+    q_rope = torch.zeros((B, H, 192), dtype=bf16)[..., 128:]
+    ckv = torch.zeros((B, T, 512), dtype=bf16)
+    k_rope = torch.zeros((B, T, 1, 64), dtype=bf16)[:, :, 0]
+    pos = torch.full((B, 1), T - 1)[:, 0]
+    before = md.launches
+    out = md.mla_decode(q_lat, q_rope, ckv, k_rope, pos, 0.25)
+    assert out.shape == (B, H, 512) and out.is_contiguous()
+    [(entry, index, args)] = calls
+    assert (entry, index) == ("mla_entry", 3)
+    assert len(args) == len(
+        _build._SIGNATURES["mla_decode"]["mla_decode_launch"][0]) - 1
+    assert args[7:13] == (B, H, T, 512, 64, splits)
+    assert (args[6] is None) == (splits == 1)
+    assert args[13:] == (512, B * 512, H * 192, 192, T * 512, 512, T * 64,
+                         64, 1, H * 512, 512, 0.25)
+    assert md.launches == before + 1

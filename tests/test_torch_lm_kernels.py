@@ -392,6 +392,129 @@ def test_mla_on_device_tensors_takes_the_kernel_op_unpadded(monkeypatch):
                       1.0 / np.sqrt(192))]
 
 
+def test_mla_decode_on_device_tensors_takes_the_latent_kernel_op(
+        monkeypatch):
+    """``mla_apply``'s decode step against a bf16 cache at deepseek-v2's
+    latent widths (kv LoRA 512, rope 64; the model narrowed to 2 heads and
+    d 64) on device tensors that hold no data (``meta`` tensors taken as
+    ``cuda`` ones, as above): the latent kernel's op gets the absorbed
+    query ``[B, H, 512]``, the rope query ``[B, H, 64]``, the cache in
+    place and one position a row; the cache is never expanded
+    (``_mm_rows`` is not called), no plain version runs, and the
+    ``mla.latent_decode`` counter counts the call."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.models import layers as tl
+    from repro_torch.models import param_values
+
+    cfg = get_config("deepseek-v2-236b").with_(
+        n_heads=2, d_model=64, q_lora_rank=48)
+    params = tl.tree_map(
+        lambda t: torch.empty(t.shape, dtype=torch.bfloat16, device="meta"),
+        param_values(tl.mla_init(torch.Generator().manual_seed(0), cfg)),
+        is_leaf=torch.is_tensor)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("ran on a device tensor")
+
+    for mod, name in ((ops, "mla_decode_plain"), (md, "mla_decode_plain"),
+                      (ops, "rmsnorm_plain"), (tl, "_mm_rows")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(ops, "_on_cuda", lambda name, t: True)
+    calls, inner = [], ops.mla_decode_op
+
+    def recording(q_lat, q_rope, ckv, k_rope, positions, scale):
+        calls.append((tuple(q_lat.shape), tuple(q_rope.shape),
+                      ckv is cache["ckv"],
+                      tuple(k_rope.shape), tuple(positions.shape), scale))
+        return inner(q_lat, q_rope, ckv, k_rope, positions, scale)
+
+    monkeypatch.setattr(ops, "mla_decode_op", recording)
+    B, T = 2, 40
+    cache = {"ckv": torch.empty((B, T, 512), dtype=torch.bfloat16,
+                                device="meta"),
+             "k_rope": torch.empty((B, T, 1, 64), dtype=torch.bfloat16,
+                                   device="meta"),
+             "len": torch.zeros((), dtype=torch.int32, device="meta")}
+    x = torch.empty((B, 1, cfg.d_model), dtype=torch.bfloat16, device="meta")
+    pos = torch.zeros((B, 1), dtype=torch.long, device="meta")
+    with obs.recording(obs.Recorder()) as rec:
+        out, _ = tl.mla_apply(params, cfg, x, pos, cache=cache)
+    assert out.shape == (B, 1, cfg.d_model) and out.device.type == "meta"
+    assert calls == [((B, 2, 512), (B, 2, 64), True, (B, T, 64), (B,),
+                      1.0 / np.sqrt(192))]
+    assert rec.counters == {"mla.latent_decode": 1}
+
+
+def _latent_operands(B=2, H=3, T=70, kvr=512, r=64, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(B * T)
+    return (torch.randn((B, H, kvr), generator=g).to(dtype),
+            torch.randn((B, H, r), generator=g).to(dtype),
+            torch.randn((B, T, kvr), generator=g).to(dtype),
+            torch.randn((B, T, r), generator=g).to(dtype),
+            torch.tensor([T - 1] * B))
+
+
+@pytest.mark.parametrize("what,match", [
+    ("widths", "widths"), ("dtype", "bfloat16"), ("positions", "int64"),
+    ("last-dim", "contiguous"), ("unaligned", "aligned"),
+    ("cpu", "CUDA device")])
+def test_mla_decode_refuses_what_it_does_not_take(what, match):
+    """The latent kernel's launcher raises before any launch, and counts
+    none, on widths other than ``LATENT_WIDTHS`` (the op's fake
+    implementation too), fp32 operands, int32 positions, a cache whose
+    last dim is not contiguous, one that starts off a 16-byte boundary,
+    and CPU tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import mla_decode as md
+
+    args = list(_latent_operands(kvr=256 if what == "widths" else 512))
+    if what == "dtype":
+        args[:4] = [a.float() for a in args[:4]]
+    elif what == "positions":
+        args[4] = args[4].int()
+    elif what == "last-dim":
+        args[2] = torch.zeros((2, 70, 1024), dtype=torch.bfloat16)[..., ::2]
+    elif what == "unaligned":
+        args[2] = torch.zeros(2 * 70 * 512 + 1,
+                              dtype=torch.bfloat16)[1:].view(2, 70, 512)
+    before = md.launches
+    with pytest.raises(ValueError, match=match):
+        md.mla_decode(*args, 0.1)
+    assert md.launches == before
+    if what == "widths":
+        with FakeTensorMode():
+            q_lat = torch.empty((2, 3, 256), device="cuda")
+            with pytest.raises(ValueError, match="widths"):
+                md.mla_decode_op(q_lat, torch.empty((2, 3, 64)),
+                                 torch.empty((2, 70, 256)),
+                                 torch.empty((2, 70, 64)),
+                                 torch.zeros((2,), dtype=torch.long), 0.1)
+
+
+def test_mla_decode_plain_attends_to_each_rows_live_slots():
+    """The plain version attends row ``b`` to slots ``0 ..
+    min(positions[b], T - 1)`` (the slots the expansion path's mask leaves
+    live) and gives zeros to a row with no live slot; its splits of a row
+    over the card, :func:`splits_for`, fill the 132 SMs in one wave at the
+    deepseek cells' shapes (4 splits at B 16, 8 at B 8), one where the
+    blocks already do, at most one a 64-slot tile."""
+    from repro_torch.kernels import mla_decode as md
+
+    q_lat, q_rope, ckv, k_rope, _ = _latent_operands(dtype=torch.float32)
+    pos = torch.tensor([-1, 30])
+    got = md.mla_decode_plain(q_lat, q_rope, ckv, k_rope, pos, 0.05)
+    assert not got[0].any()
+    s = (q_lat[1] @ ckv[1, :31].T + q_rope[1] @ k_rope[1, :31].T) * 0.05
+    np.testing.assert_allclose(got[1].numpy(), (torch.softmax(s, -1)
+                               @ ckv[1, :31]).numpy(), rtol=1e-5, atol=1e-5)
+    assert [md.splits_for(b, 128, t, 132) for b, t in (
+        (16, 2184), (8, 1032), (8, 2056), (66, 300), (1, 100))] == [
+        4, 8, 8, 1, 2]
+
+
 @pytest.mark.parametrize("s_len,causal,window", [
     (16, True, 0), (16, True, 5), (16, False, 0), (16, False, 5),
     (3, True, 8), (3, False, 8), (1, True, 0)])

@@ -378,6 +378,171 @@ def test_mla_prefill_goes_through_the_attention_kernel_padded(monkeypatch):
     assert len(calls) == 1
 
 
+def _deepseek_narrow(n_heads: int):
+    """deepseek-v2-236b's MLA widths (kv LoRA 512, rope 64, q/k 128 + 64,
+    v 128) on a narrow model (d 64, q LoRA 48, ``n_heads`` heads): its
+    config and parameters."""
+    cfg = get_config("deepseek-v2-236b").with_(
+        n_heads=n_heads, d_model=64, q_lora_rank=48)
+    return cfg, param_values(tl.mla_init(
+        torch.Generator().manual_seed(n_heads), cfg))
+
+
+# (heads, cache slots, the cache's length before the step, each row's
+# position): rows at their own positions in a part-filled cache, a cache
+# the step fills, one written past its end (the write clamped to its last
+# slot, rows at and past it)
+LATENT_CASES = {"ragged": (2, 40, 17, (5, 17, 30)),
+                "full": (3, 40, 39, (39, 39)),
+                "clamped": (4, 40, 52, (52, 39, 60))}
+
+
+def _mla_decode_step(cfg, params, case, dtype, latent, monkeypatch):
+    """One MLA decode step of :data:`LATENT_CASES` ``case`` in ``dtype``,
+    in latent space or through the expansion (``_latent_decode`` forced):
+    its output and the cache it wrote."""
+    _, T, length, pos = LATENT_CASES[case]
+    B = len(pos)
+    g = torch.Generator().manual_seed(T + cfg.n_heads)
+    cache = {"ckv": torch.randn((B, T, 512), generator=g).to(dtype),
+             "k_rope": torch.randn((B, T, 1, 64), generator=g).to(dtype),
+             "len": torch.tensor(length, dtype=torch.int32)}
+    x = torch.randn((B, 1, cfg.d_model), generator=g).to(dtype)
+    monkeypatch.setattr(tl, "_latent_decode", lambda *a: latent)
+    out, _ = tl.mla_apply(tl.tree_cast(params, dtype), cfg, x,
+                          torch.tensor(pos)[:, None], cache=cache)
+    return out, cache
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(LATENT_CASES))
+def test_mla_latent_decode_matches_the_expansion(case, dtype, monkeypatch):
+    """One decode step at deepseek's widths in latent space (``wukv``
+    folded into the query and the output, ``ops.mla_decode``'s plain
+    version between) against the expansion of the cache, from the same
+    cache, which both write alike.  fp32: the same products reassociated,
+    within 1e-5.  bf16: the two round at other places (the expansion each
+    head's keys and values and the attention weights, the latent route the
+    absorbed query, the latent output and its product), a few bf16 units
+    of an output of magnitude ~1: within the bf16 tolerance of
+    ``tests/test_kernels.py``, 2e-2."""
+    cfg, params = _deepseek_narrow(LATENT_CASES[case][0])
+    dt = getattr(torch, dtype)
+    want, want_cache = _mla_decode_step(cfg, params, case, dt, False,
+                                        monkeypatch)
+    got, got_cache = _mla_decode_step(cfg, params, case, dt, True,
+                                      monkeypatch)
+    for key, value in want_cache.items():
+        assert torch.equal(got_cache[key], value), key
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("what", ["bf16", "fp32-cache", "smoke-widths",
+                                  "prefill-into-cache", "sharded-cache"])
+def test_mla_takes_the_latent_route_only_where_it_holds(what, monkeypatch):
+    """``_latent_decode``: a decode step (S 1) against a plain bf16 cache at
+    deepseek's widths attends in latent space; the fp32 cache (the
+    engine's default), the smoke widths (kv LoRA 16, rope 8), a prefill of
+    S > 1 into a filled cache and a cache sharded on a mesh (a
+    ``DTensor``) expand it through ``wukv``.  Through ``mla_apply`` on the
+    CPU: ``ops.mla_decode`` is called, or ``_mm_rows(ckv, wukv)``."""
+    from repro_torch.kernels import ops
+
+    cfg = (get_config("deepseek-v2-236b", smoke=True) if what ==
+           "smoke-widths" else _deepseek_narrow(2)[0])
+    params = param_values(tl.mla_init(torch.Generator().manual_seed(1), cfg))
+    dt = torch.float32 if what == "fp32-cache" else torch.bfloat16
+    B, T, S = 2, 24, 3 if what == "prefill-into-cache" else 1
+    cache = {"ckv": torch.zeros((B, T, cfg.kv_lora_rank), dtype=dt),
+             "k_rope": torch.zeros((B, T, 1, cfg.rope_head_dim), dtype=dt),
+             "len": torch.tensor(7, dtype=torch.int32)}
+    if what == "sharded-cache":  # as the dry run's caches are
+        monkeypatch.setattr(tl, "is_dtensor", lambda *t: True)
+    latent = what == "bf16"
+    assert tl._latent_decode(cfg, cache, S) is latent
+    if what == "sharded-cache":
+        return
+    calls = []
+
+    def recording(mod, name):
+        inner = getattr(mod, name)
+
+        def call(*args):
+            calls.append(name)
+            return inner(*args)
+
+        monkeypatch.setattr(mod, name, call)
+
+    recording(ops, "mla_decode")
+    recording(tl, "_mm_rows")
+    pos = torch.arange(7, 7 + S)[None].expand(B, S)
+    x = torch.randn((B, S, cfg.d_model)).to(torch.bfloat16)
+    tl.mla_apply(tl.tree_cast(params, torch.bfloat16), cfg, x, pos,
+                 cache=cache)
+    assert calls == (["mla_decode"] if latent else ["_mm_rows"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(LATENT_CASES))
+def test_mla_latent_decode_matches_the_reference(case, dtype, monkeypatch):
+    """One MLA decode step at deepseek's widths (:func:`_deepseek_narrow`'s
+    narrow model) in latent space against the JAX package's ``mla_apply``,
+    which expands the cache, on the same fp32 parameters, x, positions and
+    cache (:data:`LATENT_CASES`: ragged rows, a full cache, a clamped
+    write).  bf16 cache: the route ``_latent_decode`` takes by itself; the
+    reference expands the bf16 cache in fp32, where the port rounds the
+    query, ``wukv``, the absorbed query, the latent output and its
+    product to bf16: errors up to 4.8e-3 on outputs of std 0.2-0.4, held
+    to 1e-2, twice that.  fp32 cache
+    (``_latent_decode`` forced): the same products reassociated, within
+    1e-5.  The cache each writes is the reference's: fp32 within this
+    file's 2e-5, bf16 within one bf16 unit (2**-7 of the value: the two
+    round the same fp32 slot, which may differ in its last bits)."""
+    from repro_torch.kernels import ops
+
+    h, T, length, pos = LATENT_CASES[case]
+    B, jdt, dt = len(pos), getattr(jnp, dtype), getattr(torch, dtype)
+    over = dict(n_heads=h, d_model=64, q_lora_rank=48)
+    jcfg = jax_get_config("deepseek-v2-236b").with_(**over)
+    cfg = get_config("deepseek-v2-236b").with_(**over)
+    jp = jax_param_values(jl.mla_init(jax.random.PRNGKey(h), jcfg))
+    tp = lm_params_from_reference(np_tree(jp))
+    ckv, k_rope = rand((B, T, 512), 31), rand((B, T, 1, 64), 32)
+    x, positions = rand((B, 1, 64), 33), np.array(pos)[:, None]
+    want, want_cache = jl.mla_apply(
+        jp, jcfg, jnp.asarray(x), jnp.asarray(positions), cache={
+            "ckv": jnp.asarray(ckv, jdt), "k_rope": jnp.asarray(k_rope, jdt),
+            "len": jnp.asarray(length, jnp.int32)})
+    cache = {"ckv": torch.from_numpy(ckv).to(dt),
+             "k_rope": torch.from_numpy(k_rope).to(dt),
+             "len": torch.tensor(length, dtype=torch.int32)}
+    if dtype == "float32":
+        monkeypatch.setattr(tl, "_latent_decode", lambda *a: True)
+    else:
+        assert tl._latent_decode(cfg, cache, 1)
+    calls = []
+    latent = ops.mla_decode
+    monkeypatch.setattr(ops, "mla_decode",
+                        lambda *a: calls.append(1) or latent(*a))
+    got, got_cache = tl.mla_apply(tp, cfg, torch.from_numpy(x),
+                                  torch.from_numpy(positions), cache=cache)
+    assert calls == [1] and got_cache is cache
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert got.dtype == torch.float32 and got.shape == (B, 1, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+    assert int(got_cache["len"]) == int(want_cache["len"])
+    for key in ("ckv", "k_rope"):
+        assert got_cache[key].dtype == dt
+        np.testing.assert_allclose(
+            got_cache[key].float().numpy(),
+            np.asarray(want_cache[key].astype(jnp.float32)), err_msg=key,
+            **(F32 if dtype == "float32" else dict(rtol=2 ** -7, atol=0)))
+
+
 @pytest.mark.parametrize("S", [1, 3, 5, 11, 512])
 @pytest.mark.parametrize("with_state", [False, True],
                          ids=["fresh", "from-state"])
