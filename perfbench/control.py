@@ -68,7 +68,8 @@ def readings(cell: dict, seed: int, device, with_look: bool = False) -> dict:
 
     conf, mix = cell["config"], cell["mix"]
     cfg = ModelConfig(**conf["port"])
-    tree, ref_w = weights.draw(cfg, seed, device)
+    weights.check_layers(cfg, conf["layers"])
+    tree, ref_w = weights.draw(cfg, seed, device, conf["layers"])
     eng = ServeEngine(cfg, tree, ServeConfig(
         max_batch=int(mix["batch"]), max_len=traffic.max_len(mix),
         cache_dtype=getattr(torch, mix["cache_dtype"])))

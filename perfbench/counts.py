@@ -1,6 +1,7 @@
 """The benchmark's own yardstick of work: the operations and bytes of one
 call of each of the port's kernels, computed from the call's shapes, and
-the model FLOPs of a forward, computed from a configuration file.
+the model FLOPs of a forward, computed from a configuration file and the
+terms of the mechanisms its ``layers`` name (``reference/<name>.py``).
 
 Kept here, frozen, so that a change to the program cannot move the
 yardstick it is measured by.  The peaks are NVIDIA's data sheet figures
@@ -10,6 +11,8 @@ for one H100 SXM (dense, no sparsity).
 from __future__ import annotations
 
 from typing import Dict, Sequence
+
+from perfbench import spec
 
 #: dense tensor-core rate of bf16 and fp16, operations a second
 PEAK_BF16_FLOPS = 989.4e12
@@ -63,6 +66,18 @@ def rmsnorm_call(m: int, d: int, dtype: str,
             "bytes": 2 * m * d * ITEMSIZE[dtype] + d * ITEMSIZE[scale_dtype]}
 
 
+def mla_decode_call(b: int, h: int, kvr: int, r: int, live: int,
+                    dtype: str) -> Dict[str, float]:
+    """MLA's latent decode over q_lat ``[B, H, kvr]``, q_rope ``[B, H,
+    r]`` and ``live`` cache slots in all (each row's slots up to its
+    position) of ``kvr + r`` columns: ``2 H live (2 kvr + r)`` operations
+    (scores over ``kvr + r`` columns, the weights over the ``kvr`` values);
+    the live slots, q and the output ``[B, H, kvr]`` moved once."""
+    return {"flops": 2 * h * live * (2 * kvr + r),
+            "bytes": (live * (kvr + r) + b * h * (2 * kvr + r))
+            * ITEMSIZE[dtype]}
+
+
 def least_seconds(work: Dict[str, float], dtype: str) -> float:
     """The least time the chip could take for ``work``: the larger of its
     operations over the dtype's peak and its bytes over HBM's rate."""
@@ -72,79 +87,25 @@ def least_seconds(work: Dict[str, float], dtype: str) -> float:
 
 # -- model FLOPs ---------------------------------------------------------
 
-def _mixer_params(c: dict, mixer: str) -> int:
-    """Weights of the projections of one mixer, from the configuration's
-    published keys."""
-    d = c["hidden_size"]
-    h = c["num_attention_heads"]
-    if mixer == "mla":
-        dn, r, dv = (c["qk_nope_head_dim"], c["qk_rope_head_dim"],
-                     c["v_head_dim"])
-        qr, kvr = c["q_lora_rank"], c["kv_lora_rank"]
-        q = d * qr + qr * h * (dn + r) if qr else d * h * (dn + r)
-        return q + d * (kvr + r) + kvr * h * (dn + dv) + h * dv * d
-    if mixer == "gqa":
-        dh = d // h
-        kh = c["num_key_value_heads"]
-        return d * h * dh + 2 * d * kh * dh + h * dh * d
-    if mixer == "mamba":
-        di = c["mamba_expand"] * d
-        n, dtr = c["mamba_d_state"], c["mamba_dt_rank"]
-        return d * 2 * di + di * (dtr + 2 * n) + dtr * di + di * d
-    raise ValueError(mixer)
-
-
-def _ffn_params(c: dict, ffn: str) -> int:
-    """Weights one token passes through in one FFN: the dense SwiGLU, or
-    the router, its ``top-k`` routed experts and the shared ones (not the
-    program's capacity slots)."""
-    d = c["hidden_size"]
-    if ffn == "dense":
-        return 3 * d * c["intermediate_size"]
-    if ffn == "moe":
-        e = c.get("n_routed_experts") or c["num_experts"]
-        f = c.get("moe_intermediate_size") or c["intermediate_size"]
-        k = c["num_experts_per_tok"] + c.get("n_shared_experts", 0)
-        return d * e + k * 3 * d * f
-    raise ValueError(ffn)
-
-
-def _mixer_pair_flops(c: dict, mixer: str) -> int:
-    """Operations of attention a live (query, key) pair: ``2 H (dqk +
-    dv)``; 0 for a mixer that attends to nothing."""
-    h = c["num_attention_heads"]
-    if mixer == "mla":
-        return 2 * h * (c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
-                        + c["v_head_dim"])
-    if mixer == "gqa":
-        return 2 * h * 2 * (c["hidden_size"] // h)
-    return 0
-
-
-def _mixer_token_flops(c: dict, mixer: str) -> int:
-    """Operations a token outside the products: Mamba's depthwise conv
-    (``2 K di``) and its scan (``6 di n``: the input term, the update and
-    the read-out, a multiply and an add each)."""
-    if mixer != "mamba":
-        return 0
-    di = c["mamba_expand"] * c["hidden_size"]
-    return 2 * c["mamba_d_conv"] * di + 6 * di * c["mamba_d_state"]
-
-
 def forward_flops(c: dict, batch: int, new: int, past: int,
                   head_rows: int) -> int:
     """Model FLOPs of one forward of ``batch`` sequences over ``new``
     tokens each at positions ``past .. past + new - 1`` (a prefill has
     ``past`` 0, a decode step ``new`` 1), with the head on ``head_rows``
-    rows of each sequence: 2 a weight a token, attention's live causal
-    pairs, Mamba's conv and scan."""
+    rows of each sequence: for each mechanism of each layer
+    (:func:`perfbench.spec.mechanism`), 2 a weight a token, its operations
+    a live causal pair and its operations a token outside the
+    products."""
     tokens = batch * new
     pairs = batch * (live_pairs(past + new) - live_pairs(past))
     total = 0
-    for mixer, ffn in c["layers"]:
-        total += 2 * tokens * (_mixer_params(c, mixer) + _ffn_params(c, ffn))
-        total += pairs * _mixer_pair_flops(c, mixer)
-        total += tokens * _mixer_token_flops(c, mixer)
+    for names in c["layers"]:
+        for m in map(spec.mechanism, names):
+            total += 2 * tokens * m.params(c)
+            if hasattr(m, "pair_flops"):
+                total += pairs * m.pair_flops(c)
+            if hasattr(m, "token_flops"):
+                total += tokens * m.token_flops(c)
     total += 2 * batch * head_rows * c["hidden_size"] * c["vocab_size"]
     return total
 

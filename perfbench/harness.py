@@ -49,6 +49,7 @@ class Run:
         self.peak_window_bytes: Optional[int] = None
         self.trace = None                  # perfbench.trace.Trace
         self.traced_s = 0.0
+        self.trace_read_s = 0.0            # the profiler's stop and export
         self.traced_batches: List[Dict] = []
         self.calls: Dict[str, list] = {}   # kernel op -> recorded calls
 
@@ -84,11 +85,11 @@ def _serve_batch(eng, b: traffic.Batch, base_rid: int,
 
 
 class _Recorder:
-    """Wrappers of the port's kernel ops at their call sites (the module
-    attributes ``repro_torch.kernels.ops`` calls) that record each call's
-    shapes and dtypes, installed while the traced batches run."""
-
-    OPS = ("flash_attention_op", "fused_swiglu_op", "fused_rmsnorm_op")
+    """Wrappers of the port's kernel ops at their call sites, installed
+    while the traced batches run: for each kernel-op file
+    (:func:`perfbench.spec.kernel_ops`), the attribute ``ATTR`` of
+    ``repro_torch.kernels.ops`` (which ``ops`` calls by that name) records
+    each call by the file's ``record`` under its ``OP``."""
 
     def __init__(self):
         self.calls = collections.defaultdict(list)
@@ -97,37 +98,24 @@ class _Recorder:
         from repro_torch.kernels import ops
 
         self.ops = ops
-        self.inner = {a: getattr(ops, a) for a in self.OPS}
-        calls = self.calls
-
-        def dt(t):
-            return str(t.dtype).removeprefix("torch.")
-
-        def b2(q, k, v, causal, window, scale):
-            calls["repro_torch::flash_attention"].append(
-                (tuple(q.shape), k.shape[1], v.shape[-1], bool(causal),
-                 int(window), dt(q)))
-            return self.inner["flash_attention_op"](q, k, v, causal, window,
-                                                    scale)
-
-        def b3(x, wg, wi, wo):
-            calls["repro_torch::fused_swiglu"].append(
-                (x.shape[0], x.shape[1], wg.shape[1], dt(x)))
-            return self.inner["fused_swiglu_op"](x, wg, wi, wo)
-
-        def b4(x, scale, eps):
-            calls["repro_torch::fused_rmsnorm"].append(
-                (x.shape[0], x.shape[1], dt(x), dt(scale)))
-            return self.inner["fused_rmsnorm_op"](x, scale, eps)
-
-        ops.flash_attention_op = b2
-        ops.fused_swiglu_op = b3
-        ops.fused_rmsnorm_op = b4
+        self.saved = []
+        for f in spec.kernel_ops():
+            inner = getattr(ops, f.ATTR)
+            self.saved.append((f.ATTR, inner))
+            setattr(ops, f.ATTR, self._wrap(f, inner))
         return self
 
+    def _wrap(self, f, inner):
+        calls = self.calls[f.OP]
+
+        def op(*args, **kwargs):
+            calls.append(f.record(*args, **kwargs))
+            return inner(*args, **kwargs)
+        return op
+
     def __exit__(self, *exc):
-        for a, f in self.inner.items():
-            setattr(self.ops, a, f)
+        for attr, inner in reversed(self.saved):
+            setattr(self.ops, attr, inner)
 
 
 def _traced(eng, mix, vocab, seed, start, run: Run, torch) -> None:
@@ -145,9 +133,11 @@ def _traced(eng, mix, vocab, seed, start, run: Run, torch) -> None:
             run.traced_batches.append(
                 _serve_batch(eng, b, (start + i) * mix["batch"]))
         torch.cuda.synchronize()
-        run.traced_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        run.traced_s = t1 - t0
     run.calls = dict(rec.calls)
     run.trace = Trace.from_profiler(prof)
+    run.trace_read_s = time.perf_counter() - t1
 
 
 def _served_ok(tokens: list, n: int, vocab: int) -> bool:
@@ -169,14 +159,12 @@ def execute(cell: Dict, seed: int, seconds: float, trace: int, device,
     conf, mix, limits = cell["config"], cell["mix"], cell["limits"]
     run = Run(conf)
     cfg = ModelConfig(**conf["port"])
-    if weights.layer_kinds(cfg) != conf["layers"]:
-        raise ValueError(f"the program's layers {weights.layer_kinds(cfg)} "
-                         f"are not the configuration's {conf['layers']}")
+    weights.check_layers(cfg, conf["layers"])
     vocab, new = cfg.vocab, int(mix["new_tokens"])
 
     # -- set-up: weights, engine, one batch at each prompt length --------
     marks = {"imports_s": time.perf_counter() - t_process}
-    tree, ref_w = weights.draw(cfg, seed, device)
+    tree, ref_w = weights.draw(cfg, seed, device, conf["layers"])
     if on_card:
         torch.cuda.synchronize()
     marks["weights_s"] = time.perf_counter() - t_process
@@ -245,11 +233,17 @@ def execute(cell: Dict, seed: int, seconds: float, trace: int, device,
     failed = missing + (0 if compared else len(requests))
 
     # -- metrics -----------------------------------------------------------
+    t_metrics = time.perf_counter()
     metrics = {}
     for name, unit in cell["metrics"][trace]:
         value = spec.reader(name)(run)
         if value is not None:
             metrics[name] = {"value": value, "unit": unit}
+    # where a run's wall time goes, for the cost of a check
+    phases = {"setup_s": run.setup_s, "window_s": run.window_s,
+              "traced_s": run.traced_s, "trace_read_s": run.trace_read_s,
+              "reference_s": ref_s,
+              "metrics_s": time.perf_counter() - t_metrics}
     result = {"correct": correct,
               "attempted": sum(len(bt["tokens"]) for bt in run.batches),
               "failed": failed, "metrics": metrics}
@@ -272,6 +266,8 @@ def execute(cell: Dict, seed: int, seconds: float, trace: int, device,
                                        if every else None),
                       "reference_s": ref_s}
     result["setup_marks"] = marks
+    phases["total_s"] = time.perf_counter() - t_process
+    result["phases"] = phases
     result["checks"] = checks
     return result
 

@@ -1,0 +1,8 @@
+"""``mla_expand_ms`` in the cells whose rate is ``output_tokens_per_s.decode``:
+the same reading, under a name that moves that rate."""
+
+from perfbench import spec
+
+
+def read(run):
+    return spec.reader("mla_expand_ms")(run)

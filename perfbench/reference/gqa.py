@@ -11,6 +11,18 @@ from .attention import causal
 from .linear import linear
 from .norm import rope
 
+PORT = "attn"
+KEY = "mixer"
+
+
+def leaves(cfg) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    kh, dh, dv = cfg.n_kv_heads, cfg.head_dim, cfg.v_dim
+    return {"wq": ((d, h, dh), ("fan_in", d)),
+            "wk": ((d, kh, dh), ("fan_in", d)),
+            "wv": ((d, kh, dv), ("fan_in", d)),
+            "wo": ((h, dv, d), ("fan_in", h * dv))}
+
 
 def apply(p: dict, c: dict, x: torch.Tensor, pos: torch.Tensor,
           quant=None) -> torch.Tensor:
@@ -24,3 +36,20 @@ def apply(p: dict, c: dict, x: torch.Tensor, pos: torch.Tensor,
     o = causal(rope(q, pos, theta), rope(k, pos, theta), v,
                1.0 / math.sqrt(dh))
     return linear(o.reshape(B, S, h * dh), p["wo"].reshape(h * dh, d), quant)
+
+
+def residual(p: dict, c: dict, x: torch.Tensor, fwd) -> torch.Tensor:
+    return apply(p, c, x, fwd.pos, fwd.quant)
+
+
+def params(c: dict) -> int:
+    d, h = c["hidden_size"], c["num_attention_heads"]
+    dh = d // h
+    kh = c["num_key_value_heads"]
+    return d * h * dh + 2 * d * kh * dh + h * dh * d
+
+
+def pair_flops(c: dict) -> int:
+    """``2 H (dqk + dv)``, both the head width."""
+    h = c["num_attention_heads"]
+    return 2 * h * 2 * (c["hidden_size"] // h)

@@ -16,6 +16,28 @@ from .linear import linear
 #: time steps whose ``exp(dt A)`` is made at once
 CHUNK = 256
 
+PORT = "mamba"
+KEY = "mixer"
+
+
+def leaves(cfg) -> dict:
+    """The port's Mamba leaves: conv bias 0.1 N(0, 1), ``D`` ones,
+    ``A_log`` = log(1..n) on every channel, ``dt_bias`` from the Mamba
+    init."""
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    n, k = cfg.mamba_d_state, cfg.mamba_d_conv
+    dtr = max(1, math.ceil(d / 16))
+    return {"in_proj": ((d, 2 * di), ("fan_in", d)),
+            "conv_w": ((k, di), ("fan_in", k)),
+            "conv_b": ((di,), ("normal", 0.1)),
+            "x_proj": ((di, dtr + 2 * n), ("fan_in", di)),
+            "dt_proj": ((dtr, di), ("fan_in", dtr)),
+            "dt_bias": ((di,), ("dt_bias",)),
+            "A_log": ((di, n), ("a_log",)),
+            "D": ((di,), ("ones",)),
+            "out_proj": ((di, d), ("fan_in", di))}
+
 
 def apply(p: dict, c: dict, x: torch.Tensor, quant=None) -> torch.Tensor:
     B, S, d = x.shape
@@ -47,3 +69,21 @@ def apply(p: dict, c: dict, x: torch.Tensor, quant=None) -> torch.Tensor:
         y[:, t0:t1] = torch.einsum("bldn,bln->bld", hs, Cm[:, t0:t1])
     y = (y + u * p["D"].float()) * F.silu(z)
     return linear(y, p["out_proj"], quant)
+
+
+def residual(p: dict, c: dict, x: torch.Tensor, fwd) -> torch.Tensor:
+    return apply(p, c, x, fwd.quant)
+
+
+def params(c: dict) -> int:
+    d = c["hidden_size"]
+    di = c["mamba_expand"] * d
+    n, dtr = c["mamba_d_state"], c["mamba_dt_rank"]
+    return d * 2 * di + di * (dtr + 2 * n) + dtr * di + di * d
+
+
+def token_flops(c: dict) -> int:
+    """The depthwise conv (``2 K di``) and the scan (``6 di n``: the input
+    term, the update and the read-out, a multiply and an add each)."""
+    di = c["mamba_expand"] * c["hidden_size"]
+    return 2 * c["mamba_d_conv"] * di + 6 * di * c["mamba_d_state"]

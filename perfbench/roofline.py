@@ -1,24 +1,20 @@
 """The share of its roofline that one of the port's kernel ops reached in
 the traced batches: the least time its recorded calls could take (the
 larger of operations over the dtype's peak and bytes over HBM's rate,
-from each call's shapes) over the device time of the kernels launched
-under the op, in %."""
+from each call's shapes, by the op's file: :func:`perfbench.spec.kernel_op`)
+over the device time of the kernels launched under the op, in %."""
 
-from perfbench import counts
+from perfbench import counts, spec
+
+
+def dtype(t) -> str:
+    """A tensor's dtype by the name :mod:`perfbench.counts` keys on."""
+    return str(t.dtype).removeprefix("torch.")
 
 
 def work(op, call):
-    if op == "repro_torch::flash_attention":
-        q_shape, hkv, dv, causal, window, dtype = call
-        return counts.attention_call(q_shape, hkv, dv, causal, window,
-                                     dtype), dtype
-    if op == "repro_torch::fused_swiglu":
-        m, d, f, dtype = call
-        return counts.swiglu_call(m, d, f, dtype), dtype
-    if op == "repro_torch::fused_rmsnorm":
-        m, d, dtype, sdtype = call
-        return counts.rmsnorm_call(m, d, dtype, sdtype), dtype
-    raise ValueError(op)
+    """(operations and bytes, dtype) of one recorded call of ``op``."""
+    return spec.kernel_op(op).work(call)
 
 
 def share(run, op):
